@@ -1,6 +1,6 @@
-"""TPU-native differentiable Monte-Carlo path tracer.
+"""Differentiable Monte-Carlo path tracer in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 `prabhask5/real-time-ray-tracing-engine` (C++/CUDA): MIS path tracing,
 five material families, procedural textures, constant-density volumes,
 SAH BVH, progressive rendering, and multi-device scaling via jax.sharding.
@@ -10,16 +10,18 @@ import os as _os
 import jax as _jax
 
 # Persistent compilation cache: the render/train graphs (depth-50 scan +
-# while_loop bodies) are XLA-compile-bound; caching makes repeat CLI/bench
-# invocations start in seconds instead of minutes. Opt out with
-# RTX_NO_COMPILE_CACHE=1.
-if not _os.environ.get("RTX_NO_COMPILE_CACHE"):
-    _jax.config.update(
-        "jax_compilation_cache_dir",
-        _os.environ.get("RTX_COMPILE_CACHE_DIR",
-                        _os.path.expanduser("~/.cache/jax_rtx_cache")))
-    _jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+# fori_loop bodies) are XLA-compile-bound; caching makes repeat CLI/bench
+# invocations start in seconds instead of minutes. Where
+# JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself; otherwise the cache
+# lives at one fixed path inside the checkout (the path is part of the
+# cache's key, so it must not move between runs).
+COMPILE_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_compile_cache")
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", COMPILE_CACHE_DIR)
+_jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 from .scene.schema import (Scene, CameraConfig, Sphere, Quad, Box, Translate,
                            RotateY, Group, ConstantMedium, Lambertian, Metal,

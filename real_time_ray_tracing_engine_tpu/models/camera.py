@@ -11,8 +11,8 @@ from __future__ import annotations
 import math
 
 import jax.numpy as jnp
-import flax.struct
 
+from ..utils import pytree
 from ..scene.schema import CameraConfig
 from ..utils.vecmath import normalize, cross
 from ..utils import rng
@@ -21,7 +21,7 @@ from ..utils import rng
 CAMERA_DRAW_TAG = 0x0CA4
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class CameraState:
     center: jnp.ndarray       # (3,)
     pixel00: jnp.ndarray      # (3,)

@@ -5,8 +5,8 @@
 // positions per axis over the centroid bounds, cost = T + P_l*N_l*I +
 // P_r*N_r*I with T=1, I=2, leaf size <= 4, spatial-median fallback) and
 // flattens to a node array for iterative traversal (:322-383). This is the
-// TPU build's equivalent scene-compile-time component: same algorithm,
-// emitting the flat arrays the Pallas/JAX traversal consumes directly.
+// equivalent scene-compile-time component here: same algorithm, emitting
+// the flat arrays the JAX traversal consumes directly.
 // A numpy fallback with identical semantics lives in ops/bvh.py.
 //
 // Build: scripts/build_native.sh -> libbvh.so next to this file.

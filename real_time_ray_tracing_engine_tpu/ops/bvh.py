@@ -126,8 +126,8 @@ def _build_native(bb_min, bb_max, active):
 def _skip_links(left, right, leaf):
     """Stackless DFS skip links for per-lane traversal (hit = left child for
     inner nodes; miss = next sibling up the continuation chain; B = done).
-    The classic GPU "escape pointer" layout, here feeding the TPU lane-BVH
-    kernel where each lane walks its own chain via 128-lane gathers."""
+    The classic GPU "escape pointer" layout: each ray walks its own chain
+    without a stack."""
     n = left.shape[0]
     hit = np.zeros(n, np.int32)
     miss = np.zeros(n, np.int32)
@@ -146,9 +146,8 @@ def _skip_links(left, right, leaf):
 
 def _segregate_leaves(n_sph, left, right, leaf, prims):
     """Reorder each leaf's prim run spheres-first (in place) and return the
-    per-node sphere count. Kernel leaf tests then run two cond-free typed
-    fori_loops instead of a scalar sphere-vs-quad lax.cond per prim —
-    ROADMAP / VERDICT round-2 item 2's segregated-leaf-ranges lever."""
+    per-node sphere count (`bvh_leaf_sph`), so a leaf's prims split into a
+    sphere run and a quad run."""
     leaf_sph = np.zeros(left.shape[0], np.int32)
     for i in np.nonzero(leaf)[0]:
         off, cnt = int(left[i]), int(right[i])
@@ -285,7 +284,14 @@ def _prim_t(scene: FlatScene, prim, org, dr, tm, t_max):
 def closest_hit_bvh(scene: FlatScene, org, dr, tm, t_min=T_MIN,
                     t_max=BIG) -> HitRecord:
     """Iterative stack traversal, vectorized over the ray batch
-    (model: hit_flattened BVHNode.cpp:385-446)."""
+    (model: hit_flattened BVHNode.cpp:385-446).
+
+    The traversal only selects the winning primitive. It runs on values
+    without tangents, since reverse mode cannot pass a while_loop; the
+    winner's t is then recomputed from the differentiable inputs, as
+    closest_hit's min over its t table is."""
+    scene_in, org_in, dr_in, tm_in = scene, org, dr, tm
+    scene, org, dr, tm = jax.lax.stop_gradient((scene, org, dr, tm))
     n = org.shape[0]
     inv_dr = 1.0 / jnp.where(jnp.abs(dr) < 1e-12,
                              jnp.where(dr < 0, -1e-12, 1e-12), dr)
@@ -353,8 +359,9 @@ def closest_hit_bvh(scene: FlatScene, org, dr, tm, t_min=T_MIN,
     stack, sp, best_t, best_p, found = jax.lax.while_loop(
         cond, step, (stack, sp, best_t, best_p, found))
 
-    ts_safe = jnp.where(found, best_t, 1.0)
-    point, normal, front, uu, vv, mat = shade_prim(scene, best_p, org, dr, tm,
-                                                   ts_safe)
-    return HitRecord(hit=found, t=jnp.where(found, best_t, BIG), point=point,
+    t = _prim_t(scene_in, best_p, org_in, dr_in, tm_in, BIG)
+    ts_safe = jnp.where(found, jnp.where(t < BIG * 0.5, t, best_t), 1.0)
+    point, normal, front, uu, vv, mat = shade_prim(
+        scene_in, best_p, org_in, dr_in, tm_in, ts_safe)
+    return HitRecord(hit=found, t=jnp.where(found, ts_safe, BIG), point=point,
                      normal=normal, front_face=front, mat=mat, u=uu, v=vv)

@@ -1,6 +1,6 @@
 """Wavefront path-tracing integrator.
 
-TPU-native re-design of the reference's recursive `ray_color`
+Wavefront re-design of the reference's recursive `ray_color`
 (Camera.cpp:232-309 / ray_color_cuda CameraKernels.cu:106-202): recursion over
 bounce depth becomes a `lax.fori_loop` carrying SoA ray state
 (origin, direction, throughput, radiance, alive-mask) for a whole lane-batch
@@ -70,18 +70,19 @@ def _resolve_hit(scene: FlatScene, org, dr, tm, u_med):
     )
 
 
-@partial(jax.jit, static_argnames=("max_depth", "sky_gradient",
-                                   "return_lengths"))
+@partial(jax.jit, static_argnames=("max_depth", "sky_gradient"))
 def trace(scene: FlatScene, org, dr, tm, keys, background, *,
-          max_depth: int = 50, sky_gradient: bool = False,
-          return_lengths: bool = False):
+          max_depth: int = 50, sky_gradient: bool = False):
     """Estimate radiance for N rays.
 
     org/dr: (N, 3) (dr need not be unit — it is normalized here);
     tm: (N,) ray times; keys: (N,) PRNG keys; background: (3,).
-    Returns (N, 3) linear radiance; with return_lengths also the (N,) count
-    of bounce iterations each path was alive for (its wavefront work) — the
-    input to utils.profiling.wavefront_utilization.
+    Returns (N, 3) linear radiance.
+
+    The bounce body is rematerialized under reverse mode: the backward keeps
+    only the per-bounce carry (12 floats and a flag per ray) and recomputes
+    each bounce's intersection tables and shading, instead of storing the
+    dense (rays x prims) residuals of every bounce.
     """
     n = org.shape[0]
     dtype = org.dtype
@@ -98,7 +99,6 @@ def trace(scene: FlatScene, org, dr, tm, keys, background, *,
         throughput=zeros3 + 1.0,
         radiance=zeros3,
         alive=zeros3[:, 0] == 0.0,
-        length=zeros3[:, 0],
     )
 
     def body(bounce, st):
@@ -106,8 +106,6 @@ def trace(scene: FlatScene, org, dr, tm, keys, background, *,
         m_pad = scene.med_neg_inv_density.shape[0]
         u_med = (rng.uniforms(keys, 1_000_000 + bounce, (m_pad,))
                  if scene.n_mediums else jnp.zeros((n, m_pad), dtype))
-
-        length = st["length"] + st["alive"].astype(st["length"].dtype)
 
         rec = _resolve_hit(scene, st["org"], st["dr"], tm, u_med)
 
@@ -162,10 +160,8 @@ def trace(scene: FlatScene, org, dr, tm, keys, background, *,
         org_new = where3(live_hit, rec.point, st["org"])
         dr_new = where3(live_hit, new_dir, st["dr"])
         return dict(org=org_new, dr=dr_new, throughput=throughput,
-                    radiance=radiance, alive=alive, length=length)
+                    radiance=radiance, alive=alive)
 
-    out = jax.lax.fori_loop(0, max_depth, body, state)
+    out = jax.lax.fori_loop(0, max_depth, jax.checkpoint(body), state)
     # paths still alive after max_depth contribute black (Camera.cpp:236-237)
-    if return_lengths:
-        return out["radiance"], out["length"]
     return out["radiance"]

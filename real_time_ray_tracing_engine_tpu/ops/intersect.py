@@ -1,6 +1,6 @@
 """Vectorized ray-primitive intersection.
 
-TPU-native replacement for the reference's virtual Hittable::hit dispatch
+Batched replacement for the reference's virtual Hittable::hit dispatch
 (Sphere.cpp:32-143, Plane.cpp:25-113, HittableList.cpp:26-42,
 ConstantMedium.cpp:25-96): every ray in a lane-batch tests every primitive
 table row with masked arithmetic (no branches), then a single argmin picks the
@@ -13,13 +13,13 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import flax.struct
 
+from ..utils import pytree
 from ..utils.vecmath import dot, cross, normalize, safe_sqrt, T_MIN, BIG
 from ..scene.flat import FlatScene
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class HitRecord:
     """Vectorized hit record (reference: HitRecord, Hittable.hpp)."""
     hit: jnp.ndarray          # (N,) bool
@@ -36,10 +36,10 @@ class HitRecord:
 #
 # All (rays x prims) math below is written in COMPONENT form: (N, S) planes
 # built from (N, 1) x (1, S) broadcasts, never (N, S, 3) tensors or einsum
-# contractions. With the scene tables as traced jit arguments, XLA
-# materializes (N, S, 3) dot_general operands to HBM — measured 190 GB of
-# traffic for a depth-8 600px Cornell pass vs 19 GB in component form (and
-# fp32 FMA chains are exact, unlike bf16-default einsum; see vecmath.edot).
+# contractions. With the scene tables as traced jit arguments, XLA would
+# materialize (N, S, 3) dot_general operands to device memory, and float32
+# FMA chains are exact where a contraction may drop to reduced precision
+# (see vecmath.edot).
 def _sphere_quadratic(center, cdelta, radius, org, dr, tm):
     """h, c, a for the sphere quadratic, all (N, S) / (N, 1) planes."""
     tmn = tm[:, None]

@@ -16,8 +16,8 @@ Outputs follow the reference ScatterRecord contract:
 from __future__ import annotations
 
 import jax.numpy as jnp
-import flax.struct
 
+from ..utils import pytree
 from ..utils.vecmath import (dot, normalize, reflect, refract, onb_from_w,
                              onb_local, safe_sqrt, where3)
 from ..utils.rng import unit_vector_from_uv, cosine_direction_from_uv
@@ -28,7 +28,7 @@ from .textures import texture_value
 INV_4PI = 1.0 / (4.0 * jnp.pi)
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class ScatterInfo:
     attenuation: jnp.ndarray   # (N, 3)
     scatters: jnp.ndarray      # (N,) bool — False = absorbed/emitter

@@ -1,20 +1,20 @@
-"""Multi-host (multi-controller) scaling scaffolding.
+"""Multi-process (multi-controller) scaling scaffolding.
 
 The reference has no distributed story at all — its "cluster" is an ssh/scp
-dev loop (build.sh:24-46, SURVEY.md §5 comm backend) — but the north-star
-metric (BASELINE.md) demands >=80% linear scaling to a multi-host TPU slice.
-This module is the jax.distributed counterpart of that layer, written so the
-SAME code runs today on a virtual CPU mesh (tests, dryrun_multichip) and
-unchanged on a real v5e slice:
+dev loop (build.sh:24-46, SURVEY.md §5 comm backend). This module is the
+jax.distributed counterpart of that layer, written so the SAME code runs on
+a virtual CPU mesh (tests, dryrun_multichip), on the cards of one host, and
+across processes:
 
   - `initialize()`      — multi-controller bring-up (jax.distributed),
                           driven by env vars or explicit args; no-op when
                           single-process so local runs need no ceremony.
-  - `make_global_mesh()`— DCN x ICI-aware ("tile", "sample") mesh: hosts ride
-                          the OUTER "tile" axis (pixel row-blocks — no
-                          per-bounce cross-host traffic at all), chips within
-                          a host ride the INNER "sample" axis whose psum is
-                          the only hot collective, so it stays on ICI.
+  - `make_global_mesh()`— ("tile", "sample") mesh over every process's
+                          devices. The mapping follows the algorithm: "tile"
+                          (pixel row-blocks) carries no collective while
+                          rendering, "sample" carries the one psum. In one
+                          process (e.g. four cards of one host, each reaching
+                          every other over NVLink) it is make_render_mesh.
   - `replicate()`       — put a host-local pytree (scene, camera) on every
                           device of the mesh as a fully-replicated global
                           array, the multi-controller analogue of "scene/BVH
@@ -22,8 +22,7 @@ unchanged on a real v5e slice:
   - checkpoint shards   — each host persists only its own row-block of the
                           progressive accumulation; any host subset can
                           restart from its shard (elastic re-render).
-  - `scaling_report()`  — throughput vs device count on the same workload;
-                          the >=80%-linear harness.
+  - `scaling_report()`  — throughput vs device count on the same workload.
 """
 from __future__ import annotations
 
@@ -45,8 +44,8 @@ def initialize(coordinator_address: str | None = None,
     """Bring up the JAX multi-controller runtime; returns True if distributed.
 
     Arguments fall back to the standard env vars (JAX_COORDINATOR_ADDRESS,
-    JAX_NUM_PROCESSES, JAX_PROCESS_ID; on Cloud TPU jax.distributed can also
-    autodetect all three). Single-process launches (nothing set, or
+    JAX_NUM_PROCESSES, JAX_PROCESS_ID). Single-process launches (nothing
+    set, or
     num_processes == 1) are a no-op so every entry point can call this
     unconditionally.
     """
@@ -67,11 +66,12 @@ def initialize(coordinator_address: str | None = None,
 def make_global_mesh(devices=None) -> Mesh:
     """("tile", "sample") mesh over every device of every process.
 
-    Hosts (DCN granularity) are mapped whole onto the "tile" axis and the
-    chips within each host onto "sample": the per-bounce/per-pass psum over
-    "sample" then only ever crosses ICI, and the "tile" axis — which crosses
-    DCN — carries no collective at all during rendering (row blocks are
-    independent; they meet only at image assembly / checkpoint time).
+    Processes are mapped whole onto the "tile" axis and the devices within
+    each process onto "sample": the per-pass psum over "sample" stays inside
+    a process, and the "tile" axis — which crosses processes — carries no
+    collective at all during rendering (row blocks are independent; they
+    meet only at image assembly / checkpoint time). With one process this
+    is make_render_mesh.
     """
     devices = devices if devices is not None else jax.devices()
     n_proc = max(p.process_index for p in devices) + 1 \
@@ -123,14 +123,14 @@ def load_progressive_shard(ckpt_dir: str, process_index: int | None = None):
 
 # --------------------------------------------------------- scaling harness
 def scaling_report(scene=None, *, width: int = 128, n_strata: int = 2,
-                   max_depth: int = 4, engine: str = "jax",
-                   device_counts=None, reps: int = 2) -> list[dict]:
-    """Throughput vs device count on one workload; the >=80%-linear harness.
+                   max_depth: int = 4, device_counts=None,
+                   reps: int = 2) -> list[dict]:
+    """Throughput vs device count on one workload.
 
     Runs on whatever devices exist — the 8-device virtual CPU mesh in tests,
-    a real slice in production (same code; make_global_mesh places hosts on
-    "tile"). Returns [{devices, mpaths_s, efficiency}], efficiency relative
-    to linear scaling from the smallest count.
+    the cards of a host in production (same code). Returns
+    [{devices, mpaths_s, efficiency}], efficiency relative to linear scaling
+    from the smallest count.
     """
     import real_time_ray_tracing_engine_tpu as rt
     from ..scene.compile import compile_scene
@@ -156,7 +156,7 @@ def scaling_report(scene=None, *, width: int = 128, n_strata: int = 2,
         while (ns * ns) % mesh.shape["sample"]:
             ns += 1
         args = dict(mesh=mesh, width=w, height=hp, n_strata=ns,
-                    max_depth=max_depth, sky_gradient=False, engine=engine)
+                    max_depth=max_depth, sky_gradient=False)
         img = render_sharded(flat, cam, jnp.uint32(0), **args)
         np.asarray(img)                       # compile + fetch
         t0 = time.perf_counter()

@@ -1,8 +1,8 @@
 """Multi-device rendering and differentiable training over a device mesh.
 
 The reference's only parallel layer is a single-host work-stealing thread pool
-over pixel rows (ThreadPool.hpp, SURVEY.md §2.8). The TPU-native design scales
-the same data-parallel structure across a 2D device mesh instead:
+over pixel rows (ThreadPool.hpp, SURVEY.md §2.8). Here the same data-parallel
+structure spans a 2D device mesh instead:
 
   axis "tile"   — pixel row-blocks of the image (each device owns rows)
   axis "sample" — stratified sample batches (each device owns a sample range)
@@ -52,10 +52,15 @@ def _tile_sample_render(flat: FlatScene, cam, seed, *, width, height_local,
                         row0, n_strata, spp_local, sample0, max_depth,
                         sky_gradient):
     """Render rows [row0, row0+height_local) with spp_local samples starting
-    at stratum sample0. Pure function of its arguments — used per-shard."""
+    at stratum sample0. Pure function of its arguments — used per-shard.
+
+    The sample body is rematerialized under reverse mode, so the backward
+    stores one accumulator per sample and re-traces one sample at a time
+    (whose bounces are rematerialized in turn, see integrator.trace)."""
     rows = row0 + jnp.arange(height_local)
     pix = (rows[:, None] * width + jnp.arange(width)[None, :]).reshape(-1)
 
+    @jax.checkpoint
     def body(acc, k):
         s = sample0 + k
         keys = rng.ray_keys(seed, pix, jnp.broadcast_to(s, pix.shape))
@@ -74,16 +79,16 @@ def _tile_sample_render(flat: FlatScene, cam, seed, *, width, height_local,
 
 
 @partial(jax.jit, static_argnames=("mesh", "width", "height", "n_strata",
-                                   "max_depth", "sky_gradient", "engine"))
+                                   "max_depth", "sky_gradient"))
 def render_sharded(flat: FlatScene, cam, seed, *, mesh: Mesh, width: int,
                    height: int, n_strata: int, max_depth: int,
-                   sky_gradient: bool, engine: str = "jax"):
+                   sky_gradient: bool):
     """Full image, sharded (rows over "tile") x (samples over "sample").
 
     Returns the averaged (height, width, 3) image, sharded over rows.
-    engine="pallas" runs the fused wavefront megakernel per shard (absolute
-    pixel ids via its row0 offset keep the image mesh-layout-invariant);
-    "jax" (default) is the differentiable path used by parallel/train.py.
+    Absolute pixel ids (row offset per shard) keep the image
+    mesh-layout-invariant; this is also the differentiable path used by
+    parallel/train.py.
     """
     n_tile = mesh.shape["tile"]
     n_sample = mesh.shape["sample"]
@@ -92,30 +97,18 @@ def render_sharded(flat: FlatScene, cam, seed, *, mesh: Mesh, width: int,
     assert total_spp % n_sample == 0, (total_spp, n_sample)
     h_local = height // n_tile
     spp_local = total_spp // n_sample
-    if engine == "pallas":
-        from ..ops.wavefront_pallas import render_pass_pallas
-        interp = jax.default_backend() == "cpu"
 
     def shard_fn(flat, cam, seed):
         t = jax.lax.axis_index("tile")
         s = jax.lax.axis_index("sample")
-        if engine == "pallas":
-            acc = render_pass_pallas(
-                flat, cam, seed, s * spp_local, width=width, height=h_local,
-                n_strata=n_strata, max_depth=max_depth,
-                n_samples=spp_local, sky_gradient=sky_gradient,
-                interpret=interp, row0=t * h_local)
-        else:
-            acc = _tile_sample_render(
-                flat, cam, seed, width=width, height_local=h_local,
-                row0=t * h_local, n_strata=n_strata, spp_local=spp_local,
-                sample0=s * spp_local, max_depth=max_depth,
-                sky_gradient=sky_gradient)
+        acc = _tile_sample_render(
+            flat, cam, seed, width=width, height_local=h_local,
+            row0=t * h_local, n_strata=n_strata, spp_local=spp_local,
+            sample0=s * spp_local, max_depth=max_depth,
+            sky_gradient=sky_gradient)
         # merge sample partials (the atomicAdd analogue) and average
         return jax.lax.psum(acc, "sample") / total_spp
 
-    # check_vma=False: pallas_call outputs carry no varying-mesh-axes
-    # annotation, and the engines must share one shard_map signature
     return jax.shard_map(
         shard_fn, mesh=mesh,
         in_specs=(P(), P(), P()),
@@ -124,7 +117,7 @@ def render_sharded(flat: FlatScene, cam, seed, *, mesh: Mesh, width: int,
 
 def render_on_mesh(scene: Scene | FlatScene, cfg: CameraConfig | None = None,
                    *, mesh: Mesh | None = None, seed: int = 0,
-                   use_bvh: bool = False, engine: str = "auto"):
+                   use_bvh: bool = False):
     """Convenience wrapper: compile scene, pad height to the mesh, render."""
     if isinstance(scene, Scene):
         cfg = cfg or scene.camera
@@ -132,8 +125,6 @@ def render_on_mesh(scene: Scene | FlatScene, cfg: CameraConfig | None = None,
     else:
         assert cfg is not None
         flat = scene
-    from ..models.render import pick_engine
-    engine = pick_engine(flat, engine)
     mesh = mesh or make_render_mesh()
     width, height = cam_mod.image_size(cfg)
     n_tile = mesh.shape["tile"]
@@ -145,5 +136,5 @@ def render_on_mesh(scene: Scene | FlatScene, cfg: CameraConfig | None = None,
     img = render_sharded(flat, cam_mod.derive(cfg), seed, mesh=mesh,
                          width=width, height=hp, n_strata=n_strata,
                          max_depth=cfg.max_depth,
-                         sky_gradient=cfg.sky_gradient, engine=engine)
+                         sky_gradient=cfg.sky_gradient)
     return img[:height]

@@ -1,7 +1,7 @@
 """Differentiable rendering: optimize scene parameters against target images.
 
 This is the capability the reference cannot have (C++/CUDA, no autodiff) and
-the north-star of the TPU build (BASELINE.json): the whole estimator —
+the north star of this build (BASELINE.json): the whole estimator —
 camera rays, intersection, MIS shading, accumulation — is traced JAX, so
 `jax.grad` flows from pixel loss back to continuous scene parameters
 (material albedo/textures via `tex_color`, metal fuzz, dielectric IOR,
@@ -17,30 +17,16 @@ gradients overlapped with backward" of the north star.
 """
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
 import optax
 
-from jax.sharding import PartitionSpec as P
-
 from ..scene.flat import FlatScene
-from .mesh import render_sharded, _tile_sample_render
+from .mesh import render_sharded
 
 # Continuous, safely-differentiable scene parameters.
 TRAINABLE_FIELDS = ("tex_color", "mat_fuzz", "mat_ior", "sph_center",
                     "sph_radius")
-
-# prefer the in-kernel ADJOINT backward whenever >= this many hard slots
-# are requested (below it, the per-slot tangent bundles win: they ride the
-# regenerating wavefront while the adjoint's per-sample two-phase loop
-# pays max-path-length x 2 iterations per sample). Measured round 5 on
-# v5e, Cornell 600^2 spp64 d50 full-family: tangent 26.1 Mpaths/s at 9
-# slots vs adjoint 1.8; bouncing_spheres 2,013 slots: adjoint 1.28 vs
-# ~0.04 replay (tangent gated). 33 = just past MAX_HARD_SLOTS_VSCAN, so
-# the adjoint takes exactly the region the bundle tiers cannot reach.
-ADJOINT_MIN_SLOTS = 33
 
 
 def get_params(flat: FlatScene) -> dict:
@@ -51,281 +37,9 @@ def set_params(flat: FlatScene, params: dict) -> FlatScene:
     return flat.replace(**params)
 
 
-def make_kernel_render(baked: FlatScene, *, mesh, width, height, n_strata,
-                       max_depth, sky_gradient=False, interpret=None):
-    """Differentiable render at kernel speed: (params, cam, seed_f) -> image.
-
-    custom_vjp pairing (VERDICT rounds 1-5):
-      - forward  = the fused Pallas wavefront megakernel under the capped +
-        compacted schedule (ops.wavefront_pallas), ~2000x the pure-JAX path;
-      - backward = the fastest applicable fused in-kernel tier (shard_bwd):
-          1. forward-mode pass (also capped+compacted): exact tex_color
-             weight planes (or the O(1)-in-NT suffix estimator) plus
-             per-slot tangent bundles for < ADJOINT_MIN_SLOTS hard slots;
-          2. the ADJOINT reverse-mode pass at >= ADJOINT_MIN_SLOTS slots or
-             whenever the forward-mode tiers gate — every family at O(1)
-             per parameter, no slot cap (segmented-regeneration sweep for
-             max_depth > 12, per-sample sweep below; RTX_ADJOINT_SEG
-             overrides, RTX_ADJOINT=0 disables);
-          3. mixed tier: fused tex_color + replay for gate-blocked hard
-             families only;
-          4. last resort: a rematerialized pure-JAX replay of the
-             *identical* estimator (bit-matched RNG streams), so `jax.vjp`
-             of the replay IS the gradient of the kernel's output. The gate
-             reason is logged when this ~600x slower path is taken.
-
-    This mirrors the reference, where the device integrator is the only hot
-    path (CameraKernels.cu:106-202) while correctness is anchored on the CPU
-    renderer. seed_f is a float32 scalar (a float so its cotangent is an
-    ordinary zero rather than float0). Sharded over mesh = (tile, sample)
-    with absolute pixel ids, so images and gradients are mesh-layout
-    invariant; the gradient psum over shards is inserted by shard_map's
-    transpose.
-    """
-    from ..ops.wavefront_pallas import (render_pass_pallas,
-                                        pallas_grad_gate_reason,
-                                        pallas_scan_grad_gate_reason,
-                                        pallas_hard_slots_gate_reason,
-                                        pallas_adjoint_gate_reason,
-                                        hard_param_slots,
-                                        light_sphere_sources,
-                                        HARD_SLOT_FIELDS)
-    from ..ops.wavefront_pallas import MAX_GRAD_TEXS
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    import os
-    grad_reason = pallas_grad_gate_reason(baked)
-    scan_tex_reason = pallas_scan_grad_gate_reason(baked)
-    adjoint_reason = pallas_adjoint_gate_reason(baked)
-    # adjoint sweep selection: the segmented-regeneration sweep (seg=8,
-    # full lane occupancy, lambda cut at stored regen boundaries) wins
-    # when paths can run DEEP — the per-sample two-phase loop pays
-    # max-path-length x 2 per sample (bouncing d50 full-family: 2.90 vs
-    # 1.48 Mpaths/s) — while at small max_depth the per-sample loop's
-    # bounded sync cost wins (grid-4913 d8: 0.72 vs 0.56). Default is
-    # depth-keyed; RTX_ADJOINT_SEG overrides (0 = per-sample loop),
-    # read at build time like the other gates.
-    env_seg = os.environ.get("RTX_ADJOINT_SEG")
-    adjoint_seg = (int(env_seg) if env_seg not in (None, "")
-                   else (8 if max_depth > 12 else 0))
-    light_src = light_sphere_sources(baked)
-    if (scan_tex_reason is None
-            and baked.tex_color.shape[0] > MAX_GRAD_TEXS):
-        # round-4 ADVICE item 5: the suffix-radiance backward is exact
-        # EXCEPT that a texture channel whose albedo is exactly 0 gets a 0
-        # scatter-gradient (one-sided boundary) — surface the limitation
-        # once at build time so dark-initialized training is not a mystery
-        print(f"[INFO] tex_color backward: {baked.tex_color.shape[0]} "
-              f"texture rows > MAX_GRAD_TEXS={MAX_GRAD_TEXS} selects the "
-              "suffix-radiance estimator — exact, except channels with "
-              "albedo exactly 0 report a 0 scatter-gradient (one-sided "
-              "boundary); nudge dark initializations by epsilon if "
-              "training from black", flush=True)
-    n_tile = mesh.shape["tile"]
-    n_sample = mesh.shape["sample"]
-    total_spp = n_strata * n_strata
-    assert height % n_tile == 0, (height, n_tile)
-    assert total_spp % n_sample == 0, (total_spp, n_sample)
-    h_local = height // n_tile
-    spp_local = total_spp // n_sample
-
-    # the custom_vjp primal is forward-only by construction (the backward is
-    # the fused grad kernel / replay below), so it can take the two-phase
-    # capped + lane-compacted schedule where the straggler tail costs real
-    # time (+34-40% on v5e; ops.wavefront_pallas.render_pass_pallas_compacted)
-    if spp_local >= 8 and not interpret:
-        from ..ops.wavefront_pallas import render_pass_pallas_compacted
-        fwd_pass = render_pass_pallas_compacted
-    else:
-        fwd_pass = render_pass_pallas
-        if not interpret:
-            # name the decision like every other gate (round-3 ADVICE 8):
-            # a wide sample-axis mesh silently lands here
-            print(f"[INFO] train forward: single-pass schedule "
-                  f"(spp_local={spp_local} < 8; compacted straggler "
-                  "recovery needs more samples per shard)", flush=True)
-
-    @jax.custom_vjp
-    def shard_render(params, cam, seed_f, row0_f, s0_f):
-        flat = set_params(baked, params)
-        return fwd_pass(
-            flat, cam, seed_f, s0_f.astype(jnp.int32), width=width,
-            height=h_local, n_strata=n_strata, max_depth=max_depth,
-            n_samples=spp_local, sky_gradient=sky_gradient,
-            interpret=interpret, row0=row0_f.astype(jnp.int32))
-
-    def shard_fwd(params, cam, seed_f, row0_f, s0_f):
-        return (shard_render(params, cam, seed_f, row0_f, s0_f),
-                (params, cam, seed_f, row0_f, s0_f))
-
-    def shard_bwd(res, g):
-        params, cam, seed_f, row0_f, s0_f = res
-
-        # every trainable family has a fused in-kernel backward on
-        # grad-supported scenes: tex_color via exact forward-mode weight
-        # planes (~0.4x a forward pass), fuzz/IOR/sphere geometry via
-        # per-parameter tangent bundles through the linearized bounce
-        # physics (see ops.wavefront_pallas._make_kernel) — instead of the
-        # ~1000x slower pure-JAX replay. Slots are restricted to the
-        # REQUESTED families so untrained parameters cost nothing.
-        requested = set(params)
-        want_tex = "tex_color" in requested
-        known = requested <= set(TRAINABLE_FIELDS)
-        slots = (hard_param_slots(baked, requested - {"tex_color"})
-                 if known else ())
-        # the tex_color backward runs fused on every kernel mode (weight
-        # planes, or the suffix estimator beyond MAX_GRAD_TEXS); hard
-        # slots run fused on unrolled scenes and — round 4 — on vscan
-        # scenes up to MAX_HARD_SLOTS_VSCAN tangent bundles (post-gather
-        # theta aliasing in closest_hit_vscan)
-        hard_reason = (pallas_hard_slots_gate_reason(baked, len(slots))
-                       if slots else None)
-        fused_ok = known and (grad_reason is None
-                              or ((not want_tex
-                                   or scan_tex_reason is None)
-                                  and (not slots or hard_reason is None)))
-        # mixed-tier backward (round-4 VERDICT item 2): when only the HARD
-        # families are gate-blocked (e.g. 2,013 geometry slots on
-        # bouncing_spheres) but the tex gate is clear, run the fused
-        # tex_color backward at kernel speed and replay ONLY the hard
-        # families — instead of collapsing everything to the ~600x replay
-        mixed_ok = (known and not fused_ok and want_tex and slots
-                    and grad_reason is not None
-                    and scan_tex_reason is None
-                    and hard_reason is not None)
-        # the adjoint (reverse-mode) backward covers EVERY family at O(1)
-        # per parameter with no slot cap (round-5 VERDICT item 1); prefer
-        # it whenever hard families are requested at scale, or whenever
-        # the forward-mode tiers would gate to the replay
-        use_adjoint = (known and adjoint_reason is None and slots
-                       and (not fused_ok
-                            or len(slots) >= ADJOINT_MIN_SLOTS))
-        if fused_ok and not (want_tex or slots):
-            # nothing requested actually exists in this scene (e.g. fuzz
-            # with no metals): the gradient is identically zero
-            dp = {f: jnp.zeros_like(params[f]) for f in requested}
-        elif use_adjoint:
-            _, grads = render_pass_pallas(
-                set_params(baked, params), cam, seed_f,
-                s0_f.astype(jnp.int32), width=width, height=h_local,
-                n_strata=n_strata, max_depth=max_depth, n_samples=spp_local,
-                sky_gradient=sky_gradient, interpret=interpret,
-                row0=row0_f.astype(jnp.int32), cotangent=g,
-                adjoint=True, adjoint_seg=adjoint_seg,
-                light_src=light_src)
-            dp = {f: grads[f] for f in requested}
-        elif fused_ok:
-            # rows_per_tile=16 for the grad pass: the tangent-bundle /
-            # weight-plane carry grows the per-lane state several-fold, and
-            # the smaller tile is consistently ~4% faster than the
-            # forward's 32-row default on v5e (interleaved A/B, 1080p
-            # spp64 full-family: 4.26 vs 4.43 s)
-            grad_kw = dict(
-                width=width, height=h_local, n_strata=n_strata,
-                max_depth=max_depth, n_samples=spp_local,
-                sky_gradient=sky_gradient, interpret=interpret,
-                row0=row0_f.astype(jnp.int32), cotangent=g,
-                hard_slots=slots, light_src=light_src, want_tex=want_tex,
-                rows_per_tile=16)
-            if spp_local >= 8 and not interpret:
-                # capped + compacted schedule for the grad pass too
-                # (round-5 VERDICT item 6): same straggler recovery as
-                # the forward, with the Wp/Dst path state riding the
-                # spill carry
-                from ..ops.wavefront_pallas import \
-                    render_pass_pallas_grad_compacted
-                _, dg_tex, dg_hard = render_pass_pallas_grad_compacted(
-                    set_params(baked, params), cam, seed_f,
-                    s0_f.astype(jnp.int32), **grad_kw)
-            else:
-                _, dg_tex, dg_hard = render_pass_pallas(
-                    set_params(baked, params), cam, seed_f,
-                    s0_f.astype(jnp.int32), **grad_kw)
-            dp = {}
-            if want_tex:
-                dp["tex_color"] = dg_tex
-            for f in requested - {"tex_color"}:
-                dp[f] = jnp.zeros_like(params[f])
-            for k, slot in enumerate(slots):
-                f = HARD_SLOT_FIELDS[slot[0]]
-                idx = slot[1] if slot[0] != "sphc" else (slot[1], slot[2])
-                dp[f] = dp[f].at[idx].add(dg_hard[k])
-        elif mixed_ok:
-            import sys
-            print("[INFO] mixed-tier backward: fused tex_color gradient + "
-                  f"pure-JAX replay for the hard families only "
-                  f"({hard_reason})", file=sys.stderr)
-            _, dg_tex, _ = render_pass_pallas(
-                set_params(baked, params), cam, seed_f,
-                s0_f.astype(jnp.int32), width=width, height=h_local,
-                n_strata=n_strata, max_depth=max_depth, n_samples=spp_local,
-                sky_gradient=sky_gradient, interpret=interpret,
-                row0=row0_f.astype(jnp.int32), cotangent=g,
-                hard_slots=(), light_src=light_src, want_tex=True,
-                rows_per_tile=16)
-            hard_fields = requested - {"tex_color"}
-
-            @jax.checkpoint
-            def replay_hard(ph):
-                return _tile_sample_render(
-                    set_params(baked, {**params, **ph}), cam, seed_f,
-                    width=width, height_local=h_local,
-                    row0=row0_f.astype(jnp.int32), n_strata=n_strata,
-                    spp_local=spp_local, sample0=s0_f.astype(jnp.int32),
-                    max_depth=max_depth, sky_gradient=sky_gradient)
-
-            _, vjp = jax.vjp(replay_hard,
-                             {f: params[f] for f in hard_fields})
-            (dp,) = vjp(g)
-            dp["tex_color"] = dg_tex
-        else:
-            if grad_reason is not None:
-                import sys
-                reason = (scan_tex_reason if (want_tex and
-                                              scan_tex_reason is not None)
-                          else hard_reason if hard_reason is not None
-                          else grad_reason)
-                print("[INFO] fused kernel backward unavailable "
-                      f"({reason}); using the pure-JAX replay backward",
-                      file=sys.stderr)
-            @jax.checkpoint
-            def replay(p):
-                return _tile_sample_render(
-                    set_params(baked, p), cam, seed_f, width=width,
-                    height_local=h_local, row0=row0_f.astype(jnp.int32),
-                    n_strata=n_strata, spp_local=spp_local,
-                    sample0=s0_f.astype(jnp.int32), max_depth=max_depth,
-                    sky_gradient=sky_gradient)
-
-            # both paths return the radiance SUM over spp_local samples;
-            # replay yields (h_local, width, 3) like the kernel, so g maps
-            _, vjp = jax.vjp(replay, params)
-            (dp,) = vjp(g)
-        zero = jnp.zeros_like
-        return (dp, jax.tree.map(zero, cam), zero(seed_f), zero(row0_f),
-                zero(s0_f))
-
-    shard_render.defvjp(shard_fwd, shard_bwd)
-
-    def render_image(params, cam, seed_f):
-        def shard_fn(params, cam, seed_f):
-            t = jax.lax.axis_index("tile").astype(jnp.float32)
-            s = jax.lax.axis_index("sample").astype(jnp.float32)
-            acc = shard_render(params, cam, seed_f, t * h_local,
-                               s * spp_local)
-            return jax.lax.psum(acc, "sample") / total_spp
-
-        return jax.shard_map(shard_fn, mesh=mesh,
-                             in_specs=(P(), P(), P()),
-                             out_specs=P("tile"), check_vma=False)(
-                                 params, cam, seed_f)
-
-    return render_image
-
-
 def make_train_step(optimizer: optax.GradientTransformation, *, mesh, width,
                     height, n_strata, max_depth, sky_gradient=False,
-                    flat: FlatScene | None = None, engine: str = "jax"):
+                    flat: FlatScene | None = None):
     """Build a jitted SGD step: params -> rendered image -> L2 loss -> update.
 
     The returned step has signature
@@ -333,37 +47,20 @@ def make_train_step(optimizer: optax.GradientTransformation, *, mesh, width,
           (params, opt_state, loss)
 
     Pass `flat` at build time to bake the NON-trainable scene tables in as
-    compile-time constants (~10x faster on TPU: XLA folds constant gathers;
-    see models.render.baked_render_pass). Trainable params stay traced. The
-    per-step flat argument is then ignored (pass None).
-
-    engine="pallas" (requires `flat`) renders the loss forward with the fused
-    megakernel via make_kernel_render — the backward is the baked pure-JAX
-    replay, so gradients are identical to engine="jax" while the forward
-    runs at kernel speed.
+    compile-time constants (see models.render.baked_render_pass); trainable
+    params stay traced. The per-step flat argument is then ignored (pass
+    None). The backward rematerializes per sample and per bounce
+    (mesh._tile_sample_render, integrator.trace), so its memory is one
+    bounce carry per bounce of one sample, not every residual of the scan.
     """
     baked = flat
-    kernel_render = None
-    if engine == "pallas":
-        assert baked is not None, "engine='pallas' needs flat= at build time"
-        kernel_render = make_kernel_render(
-            baked, mesh=mesh, width=width, height=height, n_strata=n_strata,
-            max_depth=max_depth, sky_gradient=sky_gradient)
 
     def loss_fn(params, flat, cam, seed, target):
-        if kernel_render is not None:
-            img = kernel_render(params, cam,
-                                jnp.asarray(seed, jnp.float32))
-            return jnp.mean((img - target) ** 2)
         base = baked if baked is not None else flat
-        # remat the whole render: recomputing the forward in the backward is
-        # ~10x faster than streaming every per-bounce residual through HBM
-        # (measured 4.1s -> 0.40s per 128px/16spp/d8 step on one v5e chip)
-        render = jax.checkpoint(lambda b: render_sharded(
-            b, cam, seed, mesh=mesh, width=width, height=height,
-            n_strata=n_strata, max_depth=max_depth,
-            sky_gradient=sky_gradient))
-        img = render(set_params(base, params))
+        img = render_sharded(
+            set_params(base, params), cam, seed, mesh=mesh, width=width,
+            height=height, n_strata=n_strata, max_depth=max_depth,
+            sky_gradient=sky_gradient)
         return jnp.mean((img - target) ** 2)
 
     @jax.jit
@@ -382,11 +79,10 @@ def render_loss_grad(flat: FlatScene, cam, seed, target, *, mesh, width,
     """One-shot loss + parameter gradients (no optimizer state)."""
 
     def loss_fn(params):
-        render = jax.checkpoint(lambda b: render_sharded(
-            b, cam, seed, mesh=mesh, width=width, height=height,
-            n_strata=n_strata, max_depth=max_depth,
-            sky_gradient=sky_gradient))
-        img = render(set_params(flat, params))
+        img = render_sharded(
+            set_params(flat, params), cam, seed, mesh=mesh, width=width,
+            height=height, n_strata=n_strata, max_depth=max_depth,
+            sky_gradient=sky_gradient)
         return jnp.mean((img - target) ** 2)
 
     return jax.value_and_grad(loss_fn)(get_params(flat))

@@ -1,6 +1,6 @@
 """Scene complexity analysis and debug report.
 
-TPU analogue of the reference's scene analyzer
+Analogue of the reference's scene analyzer
 (CudaSceneInitialization.cuh:114-246: recursive object-graph walk counting
 hittable types + unique materials/textures, memory estimate with overhead,
 debug dump to logs/cuda_scene_complexity_debug.txt :74-104). Here the

@@ -1,6 +1,6 @@
 """Scene compiler: schema graph -> FlatScene SoA tables.
 
-TPU analogue of the reference's host->device scene conversion
+Analogue of the reference's host->device scene conversion
 (HittableConverter.cuh:37-240, MaterialConverter.cuh:21-123,
 TextureConverter.cuh:19-89 + CudaSceneContext tables): walks the object graph,
 dedups materials/textures into index tables, and — unlike the reference, which
@@ -340,7 +340,7 @@ def compile_scene(scene: S.Scene, use_bvh: bool = False) -> FlatScene:
 
 
 def golden_json(flat: FlatScene) -> str:
-    """Serialize the flattened scene for golden-file validation — the TPU
+    """Serialize the flattened scene for golden-file validation — the
     analogue of the reference's debug JSON dumps (Camera.cpp:75-149,
     logs/cuda_*_debug.json) used to diff CPU vs device scene state."""
     d = {}

@@ -1,6 +1,6 @@
 """FlatScene: the device-resident SoA scene representation.
 
-TPU-native replacement for the reference's CUDA tagged-union scene
+Array-table replacement for the reference's CUDA tagged-union scene
 (CudaHittable Hittable.cuh:37-49, CudaMaterial Material.cuh:204-214,
 CudaSceneContext arena CudaSceneContext.cuh:150-172): every primitive,
 material, and texture is a row in a fixed-shape float32/int32 table, so the
@@ -13,8 +13,9 @@ prims by unified id.
 """
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
+
+from ..utils import pytree
 
 # material type codes
 MAT_LAMBERTIAN, MAT_METAL, MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_ISOTROPIC = range(5)
@@ -22,7 +23,7 @@ MAT_LAMBERTIAN, MAT_METAL, MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_ISOTROPIC = ra
 TEX_SOLID, TEX_CHECKER, TEX_NOISE = range(3)
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class FlatScene:
     # --- spheres (S rows; padded rows have radius 0 and active False)
     sph_center: jnp.ndarray      # (S, 3) center at t=0
@@ -76,8 +77,7 @@ class FlatScene:
     tex_child_odd: jnp.ndarray   # (NT,) int32
 
     # --- hash-noise seed (shared per scene; utils/perlin.py derives lattice
-    # gradients arithmetically from it — no tables, so noise runs inside the
-    # Pallas megakernel where per-lane table gathers are impossible)
+    # gradients arithmetically from it — no permutation tables)
     perlin_seed: jnp.ndarray     # () uint32
 
     # --- flat BVH over unified prims (always present; 1-node dummy if unused)
@@ -89,50 +89,39 @@ class FlatScene:
     bvh_leaf: jnp.ndarray        # (B,) bool
     bvh_prims: jnp.ndarray       # (P,) int32 leaf-ordered unified prim ids
     # sphere count within each leaf's prim run: build_bvh orders every leaf's
-    # prims spheres-first, so kernel leaf tests run two cond-free typed loops
-    # instead of a per-prim sphere-vs-quad lax.cond (VERDICT round-2 item 2)
+    # prims spheres-first, so a leaf splits into two typed runs
     bvh_leaf_sph: jnp.ndarray = None   # (B,) int32
     # stackless skip links (DFS order): hit = node to visit when this node's
     # box is hit (left child; unused for leaves), miss = node to visit when
-    # missed / after a leaf (next sibling up the chain; B = end-of-walk).
-    # These drive the per-lane traversal kernel (ops/wavefront_pallas
-    # lane-BVH mode), where every lane walks its own pointer chain via
-    # 128-lane dynamic gathers — no stack, no whole-tile descent.
+    # missed / after a leaf (next sibling up the chain; B = end-of-walk),
+    # for stackless per-ray traversal.
     bvh_hit: jnp.ndarray = None        # (B,) int32
     bvh_miss: jnp.ndarray = None       # (B,) int32
 
     # --- static metadata (compile-time constants)
-    n_spheres: int = flax.struct.field(pytree_node=False, default=0)
-    n_quads: int = flax.struct.field(pytree_node=False, default=0)
-    n_lights: int = flax.struct.field(pytree_node=False, default=0)
-    n_mediums: int = flax.struct.field(pytree_node=False, default=0)
-    use_bvh: bool = flax.struct.field(pytree_node=False, default=False)
+    n_spheres: int = pytree.static_field(default=0)
+    n_quads: int = pytree.static_field(default=0)
+    n_lights: int = pytree.static_field(default=0)
+    n_mediums: int = pytree.static_field(default=0)
+    use_bvh: bool = pytree.static_field(default=False)
     # Perlin-noise textures present? Static so texture_value can skip the
     # 7-octave turbulence (8 table gathers per octave per ray) entirely for
     # noise-free scenes — with the scene as a traced jit argument XLA cannot
-    # fold the dead branch, and it dominates the whole integrator's HBM
-    # traffic (measured 189 GB -> 7 GB per depth-8 600px Cornell pass).
-    has_noise: bool = flax.struct.field(pytree_node=False, default=True)
-    # Any moving sphere (center2)? Static so the vectorized prim-chunk scan
-    # can skip the per-ray motion displacement (6 of ~34 vector ops per
-    # prim-chunk block) for static scenes (SphereKernels motion analogue).
-    has_motion: bool = flax.struct.field(pytree_node=False, default=True)
-    # #(world-active, r>0, non-moving) spheres — static so the vscan packer
-    # can segregate static prims into leading Morton chunks whose test
-    # blocks skip the motion ops even in mixed static/moving scenes.
-    n_sph_active_static: int = flax.struct.field(pytree_node=False,
-                                                 default=0)
+    # fold the dead branch.
+    has_noise: bool = pytree.static_field(default=True)
+    # Any moving sphere (center2)? (SphereKernels motion analogue.)
+    has_motion: bool = pytree.static_field(default=True)
+    # #(world-active, r>0, non-moving) spheres.
+    n_sph_active_static: int = pytree.static_field(default=0)
     # Max checker-nesting depth in the texture DAG (CheckerTexture.cpp:14-55
     # allows recursive even/odd children). Static so texture_value can
     # resolve chains with a fixed unrolled loop: depth 1 = plain checkers,
     # 0 = none.
-    checker_depth: int = flax.struct.field(pytree_node=False, default=1)
+    checker_depth: int = pytree.static_field(default=1)
     # Texture DAG structure as a hashable compile-time constant: one
-    # (type, even_child, odd_child) int triple per texture row. The Pallas
-    # unrolled kernel evaluates the DAG by static recursion over this
-    # (checker children may be checkers/noise to any depth,
-    # CheckerTexture.cpp:14-55); only colors/scales stay runtime SMEM reads.
-    tex_struct: tuple = flax.struct.field(pytree_node=False, default=())
+    # (type, even_child, odd_child) int triple per texture row (checker
+    # children may be checkers/noise to any depth, CheckerTexture.cpp:14-55).
+    tex_struct: tuple = pytree.static_field(default=())
 
     @property
     def n_prims(self) -> int:

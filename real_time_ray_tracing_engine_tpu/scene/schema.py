@@ -5,7 +5,7 @@ object graph (src/core/objects/Hittable.hpp + src/main.cpp scene builders).
 The reference README promises JSON scene configuration but never implements a
 parser (README.md:18 vs. no parser anywhere); here JSON is the primary scene
 format. A schema scene is *compiled* to flattened SoA device arrays by
-scene/compile.py — the TPU analogue of the reference's CPU→CUDA scene
+scene/compile.py — the analogue of the reference's CPU→CUDA scene
 conversion pass (HittableConverter.cuh:37-240).
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """CLI mirroring the reference raytracer's flags (src/input/CLI.cpp:4-126).
 
-Reference flags -> TPU equivalents:
+Reference flags -> equivalents here:
   --camera static|dynamic   static PPM render | progressive accumulation loop
   --output <name>           output/<name>.ppm
   -p/--parallel             shard the render over all devices (mesh DP),
@@ -25,7 +25,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="real_time_ray_tracing_engine_tpu",
-        description="TPU-native differentiable Monte-Carlo path tracer")
+        description="Differentiable Monte-Carlo path tracer in JAX")
     p.add_argument("--camera", choices=["static", "dynamic"], default="static",
                    help="static: render to PPM; dynamic: progressive loop")
     p.add_argument("--output", default="output_image",
@@ -48,18 +48,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="samples per pixel (reference default 100)")
     p.add_argument("--depth", type=int, default=None,
                    help="max bounce depth (reference default 50)")
-    p.add_argument("--engine", choices=["auto", "pallas", "jax"],
-                   default="auto",
-                   help="compute path: fused Pallas megakernel or pure-JAX "
-                        "wavefront (auto: pallas on TPU when supported)")
-    p.add_argument("--schedule", choices=["auto", "single", "compacted"],
-                   default="auto",
-                   help="pallas wavefront schedule: single pass or "
-                        "capped + lane-compacted (auto: compacted for >=8 "
-                        "samples per pass on TPU)")
-    p.add_argument("--caps", type=str, default=None,
-                   help="explicit compacted-schedule phase caps, e.g. "
-                        "'20,20' (default: mode-aware, BASELINE.md)")
     p.add_argument("--seed", type=int, default=0, help="RNG seed")
     p.add_argument("--checkpoint", default=None,
                    help="dynamic mode: save/resume accumulation state (.npz)")
@@ -119,19 +107,9 @@ def main(argv=None) -> int:
     if args.camera == "static":
         if args.parallel:
             from ..parallel.mesh import render_on_mesh
-            img = render_on_mesh(scene, use_bvh=args.bvh, seed=args.seed,
-                                 engine=args.engine)
+            img = render_on_mesh(scene, use_bvh=args.bvh, seed=args.seed)
         else:
-            # batch size follows the schedule choice: the auto/compacted
-            # schedules need >=8 samples per batch to trigger (round-3
-            # ADVICE 4 — a blanket 16 silently changed per-batch memory
-            # and progress granularity for --schedule single)
-            spb = 4 if args.schedule == "single" else 16
-            caps = (tuple(int(c) for c in args.caps.split(","))
-                    if args.caps else None)
             img = rt.render(scene, use_bvh=args.bvh, seed=args.seed,
-                            engine=args.engine, schedule=args.schedule,
-                            samples_per_batch=spb, caps=caps,
                             progress=lambda s, t: print(
                                 f"\r[INFO] sample {s}/{t}", end="",
                                 file=sys.stderr))
@@ -140,12 +118,10 @@ def main(argv=None) -> int:
     elif args.view:
         from ..models.viewer import run_viewer
         prog = run_viewer(scene, use_bvh=args.bvh, seed=args.seed,
-                          engine=args.engine, max_frames=args.frames,
-                          checkpoint=args.checkpoint)
+                          max_frames=args.frames, checkpoint=args.checkpoint)
         write_ppm(out_path, prog.image())
     else:
-        prog = rt.ProgressiveRenderer(scene, use_bvh=args.bvh, seed=args.seed,
-                                      engine=args.engine)
+        prog = rt.ProgressiveRenderer(scene, use_bvh=args.bvh, seed=args.seed)
         if args.checkpoint and os.path.exists(args.checkpoint):
             prog.load(args.checkpoint)
             print(f"[INFO] resumed at {prog.samples_taken} samples",

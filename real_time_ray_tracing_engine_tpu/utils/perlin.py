@@ -1,10 +1,9 @@
-"""Perlin-style gradient noise, hash-based (TPU-native redesign).
+"""Perlin-style gradient noise, hash-based (table-free redesign).
 
 Reference: src/core/PerlinNoise.hpp:43-79,140-205 — 256 random unit gradient
 vectors addressed by xor of three permutation tables, Hermite-faded trilinear
-interpolation, 7-octave |noise| turbulence. The permutation-table form is a
-CPU idiom: per-lattice-corner TABLE GATHERS are not vector ops on a TPU VPU,
-which is why round 1 had to gate noise scenes off the fused Pallas kernel.
+interpolation, 7-octave |noise| turbulence, with per-lattice-corner TABLE
+GATHERS.
 
 This redesign derives each lattice corner's gradient ARITHMETICALLY — a
 counter-based PCG4D hash of the integer corner coordinates (the same hash the
@@ -13,9 +12,7 @@ That is distribution-identical to the reference's tables (which cache 256
 samples of exactly this distribution, PerlinNoise.hpp:19-26, and are randomly
 seeded per run, so parity with the reference was always distributional — see
 SURVEY.md §7 hard part 6), removes the tables from the scene state, and runs
-unchanged on (N,) ray batches in the traced-JAX integrator and on (R, 128)
-lane planes inside the Pallas megakernel — bit-identical streams, so the JAX
-path remains the kernel's oracle for noise scenes.
+elementwise on ray batches of any shape.
 
 All functions take component arrays (px, py, pz) of any common shape.
 """

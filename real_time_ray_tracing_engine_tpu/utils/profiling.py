@@ -1,31 +1,39 @@
-"""Profiling: rays/s meter, jax.profiler traces, and a VPU roofline estimate.
+"""Profiling: rays/s meter, jax.profiler traces, and a roofline estimate.
 
 The reference's only instrumentation is a per-scanline progress log
 (StaticCamera.cpp:63-65) and a once-per-second FPS overlay that doubles as
 the adaptive-tile control signal (DynamicCamera.cpp:182-194). SURVEY.md §5
-asks the TPU build for more: jax.profiler traces plus a rays/s meter derived
+asks for more: jax.profiler traces plus a rays/s meter derived
 from (W*H*spp*avg_depth)/wall and a roofline comparison.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import subprocess
 import time
 
 import jax
 
-# Approximate peak vector (VPU) throughput per chip, f32 FMA ops/s.
-# v5e: 4 MXU-adjacent VPUs x (8x128) lanes x ~0.94 GHz x 2 (fma) per core.
-# These are order-of-magnitude roofline anchors, not marketing numbers.
-_VPU_PEAK_FLOPS = {
-    "TPU v4": 4.3e12,
-    "TPU v5 lite": 1.9e12,
-    "TPU v5e": 1.9e12,
-    "TPU v5p": 4.6e12,
-    "TPU v6e": 3.7e12,
+# Published peaks per device, keyed by jax `device_kind`: float32 FLOP/s
+# outside the tensor cores (path tracing is float32 vector work) and device
+# memory bytes/s. Source: NVIDIA H100 data sheet, SXM part (dense rates, at
+# the 700 W power limit).
+PEAK_RATES = {
+    "NVIDIA H100 80GB HBM3": {"f32_flops": 67e12, "hbm_bytes": 3.35e12},
 }
 
-# Fallback cost of one wavefront bounce per ray lane, in VPU op equivalents
+
+def peak_rates(kind: str) -> dict:
+    """Published peaks for a device kind; an unknown device is an error."""
+    try:
+        return PEAK_RATES[kind]
+    except KeyError:
+        raise KeyError(f"no published peak rates for device kind {kind!r}; "
+                       f"known: {sorted(PEAK_RATES)}") from None
+
+
+# Fallback cost of one wavefront bounce per ray lane, in float32 op equivalents
 # (intersection over ~24 Cornell prims + MIS shading + RNG). Prefer
 # measured_ops_per_bounce(), which derives the number from XLA's compiled
 # cost analysis of the oracle integrator instead of this hand-tuned anchor.
@@ -36,13 +44,11 @@ def measured_ops_per_bounce(flat, cam_cfg, *, width=64, max_depth=8,
                             seed=0) -> float | None:
     """Compiler-measured arithmetic ops per wavefront bounce iteration.
 
-    XLA's `compiled.cost_analysis()["flops"]` for the jitted pure-JAX oracle
-    integrator — the same estimator arithmetic the fused kernel executes,
-    per (ray x bounce) since the oracle's fori_loop runs every ray for
-    exactly max_depth iterations. This replaces the hand-tuned
-    DEFAULT_OPS_PER_BOUNCE roofline anchor with a compiler-derived count
-    (VERDICT round-2 weak 6). Returns None when the backend reports no cost
-    model."""
+    XLA's `compiled.cost_analysis()["flops"]` for the jitted integrator, per
+    (ray x bounce) since its fori_loop runs every ray for exactly max_depth
+    iterations. This replaces the hand-tuned DEFAULT_OPS_PER_BOUNCE
+    roofline anchor with a compiler-derived count. Returns None when the
+    backend reports no cost model."""
     import jax.numpy as jnp
     from ..models import camera as cam_mod
     from ..ops.integrator import trace
@@ -96,16 +102,11 @@ class RenderStats:
 
     def roofline_fraction(self,
                           ops_per_bounce: float = DEFAULT_OPS_PER_BOUNCE
-                          ) -> float | None:
-        """Fraction of the chip's VPU peak this render achieved, given the
-        per-bounce op cost model. None when the device is unknown."""
-        peak = None
-        for k, v in _VPU_PEAK_FLOPS.items():
-            if self.device_kind.startswith(k):
-                peak = v
-                break
-        if peak is None:
-            return None
+                          ) -> float:
+        """Fraction of the device's float32 peak this render achieved, given
+        the per-bounce op cost model. Raises KeyError for an unknown
+        device."""
+        peak = peak_rates(self.device_kind)["f32_flops"]
         return self.rays_per_s * ops_per_bounce / peak
 
     def report(self) -> str:
@@ -116,11 +117,20 @@ class RenderStats:
             f"{self.rays_per_s / 1e6:.2f} Mrays/s "
             f"(avg depth {self.avg_depth:.1f})",
         ]
-        frac = self.roofline_fraction()
-        if frac is not None:
-            lines.append(f"  ~{100 * frac:.1f}% of {self.device_kind} "
-                         f"VPU roofline")
+        if self.device_kind in PEAK_RATES:
+            lines.append(f"  ~{100 * self.roofline_fraction():.1f}% of "
+                         f"{self.device_kind} float32 peak")
         return "\n".join(lines)
+
+
+def gpu_name_and_power_limit() -> str:
+    """The cards' names and power limits, one line per card, as nvidia-smi
+    reports them. A card may be set below its maximum power and then runs
+    slower under load, so every device number is reported beside this."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
 
 
 def device_kind() -> str:
@@ -153,172 +163,10 @@ def timed(stats_kwargs: dict):
 def profiler_trace(log_dir: str = "logs/jax_trace"):
     """jax.profiler trace around a render — open in TensorBoard/XProf.
 
-    The TPU analogue of the reference's (absent) per-phase profiling
+    The analogue of the reference's (absent) per-phase profiling
     (SURVEY.md §5 item 1)."""
     jax.profiler.start_trace(log_dir)
     try:
         yield
     finally:
         jax.profiler.stop_trace()
-
-
-def wavefront_utilization(flat, cam_cfg=None, *, scene=None, width=128,
-                          n_samples=16, max_depth=50, rows_per_tile=None,
-                          seed=0):
-    """Lane-occupancy analysis of the fused kernel's persistent-wavefront
-    schedule (ROADMAP ray-sorting/compaction lever, VERDICT round-1 item 8).
-
-    The megakernel regenerates a dead lane on its pixel's next stratified
-    sample, so a lane is busy for sum_s L(pixel, sample_s) bounce iterations
-    (L = path length) and a TILE runs until its slowest lane finishes.
-    Utilization = total productive lane-iterations / total lane-iterations
-    executed = mean(lane_work) / mean-over-tiles(max(lane_work)). This is
-    computed EXACTLY from per-path lengths traced by the JAX oracle
-    (ops.integrator.trace(return_lengths=True)) — identical RNG streams to
-    the kernel — so it measures the real schedule without instrumenting the
-    kernel. The headroom a between-bounce ray sort/compaction could still
-    recover is bounded by (1 - utilization).
-
-    Returns dict(utilization, mean_path_len, tail_fraction, ...).
-    """
-    import numpy as np
-    import jax.numpy as jnp
-    from ..models import camera as cam_mod
-    from ..ops.integrator import trace
-    from . import rng as rtrng
-
-    if scene is not None:
-        from ..scene.compile import compile_scene
-        scene.camera.image_width = width
-        flat = compile_scene(scene)
-        cam_cfg = scene.camera
-    cam = cam_mod.derive(cam_cfg)
-    w, h = cam_mod.image_size(cam_cfg)
-    n_strata = max(1, int(np.sqrt(n_samples)))
-    pix = jnp.arange(w * h, dtype=jnp.int32)
-
-    lane_work = np.zeros(w * h, np.float64)
-    for s in range(n_samples):
-        keys = rtrng.ray_keys(seed, pix, jnp.full(pix.shape, s, jnp.int32))
-        sid = jnp.asarray(s, jnp.int32)
-        org, dr, tm = cam_mod.generate_rays(cam, w, pix, sid, n_strata,
-                                            keys)
-        _, ln = trace(flat, org, dr, tm, keys, cam.background,
-                      max_depth=max_depth,
-                      sky_gradient=getattr(cam_cfg, "sky_gradient", False),
-                      return_lengths=True)
-        lane_work += np.asarray(ln, np.float64)
-
-    if rows_per_tile is None:
-        rows_per_tile = 32 if flat.n_prims <= 64 else 16
-    lanes = rows_per_tile * 128
-
-    def util_of(order):
-        """Exact schedule utilization for pixel->lane assignment `order`."""
-        work = lane_work[order] if order is not None else lane_work
-        pad = (-work.size) % lanes
-        tiles = np.pad(work, (0, pad)).reshape(-1, lanes)
-        per_tile = tiles.max(axis=1)     # while_loop runs to the tile max
-        return (float(work.sum() / max(per_tile.sum() * lanes, 1.0)),
-                float(per_tile.mean()))
-
-    n_pix = w * h
-    utilization, mean_iters = util_of(None)
-    # candidate re-assignments (VERDICT round-2 item 5): stride-permuted
-    # interleave (spread image regions across each tile) and the oracle
-    # upper bound (lanes sorted by total work — the assignment that
-    # minimizes sum-of-tile-maxima)
-    n_tiles = -(-n_pix // lanes)
-    stride_order = np.argsort(np.arange(n_pix) % n_tiles, kind="stable")
-    util_stride, _ = util_of(stride_order)
-    util_sorted, _ = util_of(np.argsort(lane_work, kind="stable"))
-    return dict(
-        utilization=utilization,
-        utilization_stride=util_stride,
-        utilization_sorted=util_sorted,
-        mean_path_len=float(lane_work.sum() / (n_pix * n_samples)),
-        mean_tile_iters=mean_iters,
-        tail_fraction=float(1.0 - utilization),
-        rows_per_tile=rows_per_tile, n_samples=n_samples,
-        max_depth=max_depth, width=w, height=h)
-
-
-def schedule_utilization(flat=None, cam_cfg=None, *, scene=None, width=128,
-                         n_samples=16, max_depth=50, rows_per_tile=16,
-                         caps=(), key="samples", seed=0):
-    """Exact replay of the capped+compacted schedule
-    (ops.wavefront_pallas.render_pass_pallas_compacted) on oracle
-    per-(pixel, sample) path lengths — the tool that selected the round-4
-    production cap schedules (BASELINE.md).
-
-    Phases run `caps` bounce-iteration caps, re-sorting lanes between
-    phases by `key`:
-      "samples" — remaining-sample count, the only quantity the REAL
-        schedule can know (sample streams are stochastic);
-      "oracle"  — exact remaining work, the unreachable upper bound.
-    Replay findings that shaped the defaults: repeated short caps beat one
-    big cap for short-mean-path scenes (the samples key gains resolution
-    as samples advance: bouncing R=8 caps 4x12 -> 0.68 vs 0.33 for one
-    cap), and the oracle bound (0.77 there) is unreachable because phase-1
-    survivors all share the same sample count regardless of their
-    remaining path lengths.
-
-    Returns dict(utilization, per-phase iters, mean_path_len, ...)."""
-    import numpy as np
-    import jax.numpy as jnp
-    from ..models import camera as cam_mod
-    from ..ops.integrator import trace
-    from . import rng as rtrng
-
-    if scene is not None:
-        from ..scene.compile import compile_scene
-        scene.camera.image_width = width
-        flat = compile_scene(scene)
-        cam_cfg = scene.camera
-    cam = cam_mod.derive(cam_cfg)
-    w, h = cam_mod.image_size(cam_cfg)
-    n_strata = max(1, int(np.sqrt(n_samples)))
-    pix = jnp.arange(w * h, dtype=jnp.int32)
-    L = np.zeros((n_samples, w * h), np.float64)
-    for s in range(n_samples):
-        keys = rtrng.ray_keys(seed, pix, jnp.full(pix.shape, s, jnp.int32))
-        org, dr, tm = cam_mod.generate_rays(
-            cam, w, pix, jnp.asarray(s, jnp.int32), n_strata, keys)
-        _, ln = trace(flat, org, dr, tm, keys, cam.background,
-                      max_depth=max_depth,
-                      sky_gradient=getattr(cam_cfg, "sky_gradient", False),
-                      return_lengths=True)
-        L[s] = np.asarray(ln, np.float64)
-    lanes = rows_per_tile * 128
-    n_pix = w * h
-    work = L.sum(axis=0)
-    pad = (-n_pix) % lanes
-    rem = np.pad(work, (0, pad))
-    cum = np.pad(np.cumsum(L, axis=0), ((0, 0), (0, pad)),
-                 constant_values=0.0)
-    w0 = rem.copy()
-    total = 0.0
-    phase_iters = []
-    for cap in caps:
-        tiles = rem.reshape(-1, lanes)
-        iters = np.minimum(tiles.max(axis=1), cap)
-        total += iters.sum() * lanes
-        phase_iters.append(float(iters.mean()))
-        rem = np.maximum(rem - cap, 0.0)
-        consumed = w0 - rem
-        if key == "oracle":
-            k = np.where(rem > 0, rem, -1.0)
-        else:
-            s_done = (cum <= consumed[None, :] + 1e-9).sum(axis=0)
-            k = np.where(rem > 0, (n_samples - s_done).astype(float), -1.0)
-        order = np.argsort(-k, kind="stable")
-        rem, w0, cum = rem[order], w0[order], cum[:, order]
-    tiles = rem.reshape(-1, lanes)
-    total += tiles.max(axis=1).sum() * lanes
-    phase_iters.append(float(tiles.max(axis=1).mean()))
-    return dict(
-        utilization=float(work.sum() / max(total, 1.0)),
-        phase_mean_iters=phase_iters,
-        mean_path_len=float(work.sum() / (n_pix * n_samples)),
-        caps=tuple(caps), key=key, rows_per_tile=rows_per_tile,
-        n_samples=n_samples, max_depth=max_depth, width=w, height=h)

@@ -7,9 +7,9 @@ non-reproducible. Here every draw is a pure function of
 Olano, "Hash Functions for GPU Rendering", JCGT 2020 — the standard stateless
 RNG family in GPU path tracers): renders are deterministic and invariant to
 the device-mesh layout (a pixel gets the same sample stream no matter which
-chip owns it), and the whole generator is ~20 u32 ops per 4 draws — pure VPU
-arithmetic with no cross-lane state, unlike jax.random's threefry path, and
-directly portable into Pallas kernels.
+device owns it), and the whole generator is ~20 u32 ops per 4 draws — pure
+elementwise arithmetic with no cross-lane state, unlike jax.random's
+threefry path.
 """
 from __future__ import annotations
 
@@ -57,8 +57,7 @@ def _to_unit(u):
     """u32 -> float32 in [0, 1) using the top 24 bits.
 
     Routed through an int32 bitcast: after >>8 the sign bit is clear, so the
-    reinterpretation is value-preserving, and Mosaic (Pallas TPU) has no
-    uint32->float32 convert while int32->float32 is native.
+    reinterpretation is value-preserving.
     """
     i = jax.lax.bitcast_convert_type(u >> jnp.uint32(8), jnp.int32)
     return i.astype(jnp.float32) * jnp.float32(1.0 / 16777216.0)

@@ -1,10 +1,10 @@
 """Vector math on stacked (..., 3) JAX arrays.
 
-TPU-native replacement for the reference's Vec3/Vec3Utility/ONB/Interval
+Array replacement for the reference's Vec3/Vec3Utility/ONB/Interval
 (reference: src/utils/math/Vec3.hpp, Vec3Utility.hpp, ONB.hpp, Interval.hpp).
 Instead of a 4-double aligned Vec3 class, every quantity is a float32 array
 whose last axis is xyz; all helpers broadcast over leading (ray-lane) axes so
-XLA vectorizes them on the VPU.
+XLA vectorizes them.
 """
 from __future__ import annotations
 
@@ -24,10 +24,10 @@ def dot(a, b):
 def edot(subscripts, a, b):
     """einsum pinned to fp32-accurate precision.
 
-    On TPU, XLA lowers einsum contractions to MXU matmuls at bf16 input
-    precision by default; with world coordinates of magnitude ~500 (Cornell
-    box) the resulting ~1-unit error destroys plane-equation intersection
-    tests. All geometry contractions must go through this helper.
+    On the GPU, XLA may run float32 contractions in TF32 (about three
+    decimal digits); with world coordinates of magnitude ~500 (Cornell box)
+    the resulting ~1-unit error destroys plane-equation intersection tests.
+    All geometry contractions must go through this helper.
     """
     return jnp.einsum(subscripts, a, b, precision=jax.lax.Precision.HIGHEST)
 

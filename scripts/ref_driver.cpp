@@ -5,7 +5,7 @@
 // (real_time_ray_tracing_engine_tpu/scene/schema.py format) using the
 // reference's own CPU path — StaticCamera::render_cpu -> Camera::ray_color
 // (reference src/core/camera/StaticCamera.cpp:32-131, Camera.cpp:232-309) —
-// so tests/test_reference_images.py can compare the TPU engine against the
+// so tests/test_reference_images.py can compare the JAX engine against the
 // actual reference implementation rather than a self-written oracle.
 //
 // This file contains NO copied reference code: it links against the

@@ -2,7 +2,7 @@
 
 The real multi-controller bring-up needs N processes; what IS testable
 single-process — and what these tests pin — is every code path around it:
-no-op initialize, DCN x ICI mesh construction, pytree replication, per-host
+no-op initialize, global mesh construction, pytree replication, per-host
 checkpoint shards, and the scaling-efficiency harness (SURVEY.md §4
 multi-host-without-a-cluster strategy)."""
 import numpy as np

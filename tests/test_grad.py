@@ -8,7 +8,6 @@ noise."""
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 
 import real_time_ray_tracing_engine_tpu as rt
 from real_time_ray_tracing_engine_tpu.scene.compile import compile_scene
@@ -198,1090 +197,3 @@ def test_pixel_gradient_allclose_rates():
     assert rate("mat_ior", (diel,)) >= 0.99
     assert rate("sph_radius", (0,)) >= 0.97              # geometry: edges
     assert rate("sph_center", (0, 1)) >= 0.97
-
-
-def test_fused_tex_grad_matches_kernel_fd():
-    """grad_tex kernel variant (ops.wavefront_pallas): in-kernel forward-mode
-    d<g, image>/d(tex_color) must match central differences of the kernel
-    itself. tex_color affects no discrete decision (pdfs, scatter choices and
-    masks are all tex-independent), so common-random-numbers FD of the kernel
-    is near-exact — this validates the fused backward at ~1e-3, far tighter
-    than any cross-estimator comparison. VERDICT round-1 item 1 follow-up."""
-    from real_time_ray_tracing_engine_tpu.ops.wavefront_pallas import (
-        render_pass_pallas, supports_pallas_grad)
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-
-    s = rt.builders.cornell_box()
-    s.camera.image_width = 16
-    flat = compile_scene(s)
-    assert supports_pallas_grad(flat)
-    cam = cam_mod.derive(s.camera)
-    w, h = cam_mod.image_size(s.camera)
-    seed = jnp.asarray(5, jnp.uint32)
-    kw = dict(width=w, height=h, n_strata=2, max_depth=3, n_samples=4,
-              interpret=True)
-    g = jnp.asarray(
-        np.random.default_rng(1).normal(size=(h, w, 3)), jnp.float32)
-
-    img, dg, _ = render_pass_pallas(flat, cam, seed, 0, cotangent=g, **kw)
-    img0 = render_pass_pallas(flat, cam, seed, 0, **kw)
-    np.testing.assert_allclose(np.asarray(img), np.asarray(img0), atol=1e-6)
-
-    tc = np.asarray(flat.tex_color)
-    eps = 1e-3
-    checked = 0
-    for t in range(tc.shape[0]):
-        for c in (0,):
-            if abs(float(np.asarray(dg)[t, c])) < 1e-4:
-                continue
-            p, m = tc.copy(), tc.copy()
-            p[t, c] += eps
-            m[t, c] -= eps
-            d = (np.asarray(render_pass_pallas(
-                     flat.replace(tex_color=jnp.asarray(p)), cam, seed, 0,
-                     **kw))
-                 - np.asarray(render_pass_pallas(
-                     flat.replace(tex_color=jnp.asarray(m)), cam, seed, 0,
-                     **kw)))
-            fd = float((d * np.asarray(g)).sum() / (2 * eps))
-            np.testing.assert_allclose(float(np.asarray(dg)[t, c]), fd,
-                                       rtol=5e-3, err_msg=f"tex {t} ch {c}")
-            checked += 1
-    assert checked >= 2
-
-
-def test_fused_full_grad_matches_replay():
-    """Full-family fused backward (VERDICT round-2 item 1): the in-kernel
-    tangent-bundle gradients for fuzz / IOR / sphere center / sphere radius
-    — and the weight-plane tex_color gradients — must match jax.vjp of the
-    pure-JAX replay of the identical estimator (bit-matched RNG streams).
-    The replay IS the semantics the kernel backward claims to implement
-    (detached sampling, reparameterized t(theta)), so agreement here is
-    float-noise-tight up to discrete branch flips on last-ulp differences.
-    The scene includes a SPHERE MIS light that aliases a trainable sphere,
-    exercising the light-row theta aliasing (light_sphere_sources)."""
-    from real_time_ray_tracing_engine_tpu.ops.wavefront_pallas import (
-        render_pass_pallas, supports_pallas_grad, hard_param_slots,
-        light_sphere_sources, HARD_SLOT_FIELDS)
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-    from real_time_ray_tracing_engine_tpu.parallel.mesh import \
-        _tile_sample_render
-    from real_time_ray_tracing_engine_tpu.parallel import train
-
-    cam = rt.CameraConfig(aspect_ratio=1.0, image_width=20,
-                          samples_per_pixel=4, max_depth=4, vfov=40,
-                          lookfrom=(0, 2, 9), lookat=(0, 1, 0))
-    glass = rt.Dielectric(1.5)
-    glass_sphere = rt.Sphere((0, 1, 1.8), 0.8, glass)
-    scene = rt.Scene(objects=[
-        rt.Quad((-6, 0, -6), (12, 0, 0), (0, 0, 12),
-                rt.Lambertian(rt.SolidColor((0.6, 0.5, 0.4)))),
-        rt.Quad((-1.5, 5, -1.5), (3, 0, 0), (0, 0, 3),
-                rt.DiffuseLight(rt.SolidColor((6, 6, 6)))),
-        rt.Sphere((-1.6, 1, 0), 1.0,
-                  rt.Lambertian(rt.SolidColor((0.8, 0.2, 0.2)))),
-        rt.Sphere((1.6, 1, 0), 1.0, rt.Metal((0.9, 0.9, 0.9), 0.3)),
-        glass_sphere,
-    ], lights=[rt.Quad((-1.5, 5, -1.5), (3, 0, 0), (0, 0, 3),
-                       rt.Lambertian(rt.SolidColor((1, 1, 1)))),
-               glass_sphere],
-        camera=cam)
-    flat = compile_scene(scene)
-    assert supports_pallas_grad(flat)
-    slots = hard_param_slots(flat)
-    light_src = light_sphere_sources(flat)
-    assert any(s >= 0 for s in light_src)   # sphere light aliasing covered
-    assert {s[0] for s in slots} == {"fuzz", "ior", "sphc", "sphr"}
-
-    camd = cam_mod.derive(cam)
-    w, h = cam_mod.image_size(cam)
-    seed = jnp.asarray(7, jnp.uint32)
-    g = jnp.asarray(
-        np.random.default_rng(2).normal(size=(h, w, 3)), jnp.float32)
-    kw = dict(width=w, height=h, n_strata=2, max_depth=4, n_samples=4,
-              interpret=True)
-
-    img, dg_tex, dg_hard = render_pass_pallas(
-        flat, cam_mod.derive(cam), seed, 0, cotangent=g,
-        hard_slots=slots, light_src=light_src, **kw)
-    # the grad variant's primal image must be unchanged
-    img0 = render_pass_pallas(flat, camd, seed, 0, **kw)
-    np.testing.assert_allclose(np.asarray(img), np.asarray(img0), atol=1e-6)
-
-    params = train.get_params(flat)
-
-    def replay(p):
-        return _tile_sample_render(
-            train.set_params(flat, p), camd, seed, width=w, height_local=h,
-            row0=jnp.asarray(0, jnp.int32), n_strata=2, spp_local=4,
-            sample0=jnp.asarray(0, jnp.int32), max_depth=4,
-            sky_gradient=False)
-
-    _, vjp = jax.vjp(replay, params)
-    (dp,) = vjp(g)
-
-    np.testing.assert_allclose(np.asarray(dg_tex),
-                               np.asarray(dp["tex_color"]),
-                               rtol=2e-2, atol=2e-3)
-    checked = 0
-    for k, slot in enumerate(slots):
-        f = HARD_SLOT_FIELDS[slot[0]]
-        idx = slot[1] if slot[0] != "sphc" else (slot[1], slot[2])
-        want = float(np.asarray(dp[f])[idx])
-        got = float(np.asarray(dg_hard)[k])
-        np.testing.assert_allclose(
-            got, want, rtol=5e-2, atol=5e-3, err_msg=f"{slot}")
-        if abs(want) > 1e-3:
-            checked += 1
-    assert checked >= 6, checked   # real signal on most hard params
-
-
-def test_fused_grad_cornell_smoke_mediums():
-    """Constant-medium scenes are now inside the fused-backward gate
-    (VERDICT round-2 item 1: cornell_smoke previously trained at replay
-    speed even for tex_color). Medium tint is tex_color-family — the weight
-    planes flow through the isotropic in-medium scatter — so the kernel
-    tex gradients must match the replay's."""
-    from real_time_ray_tracing_engine_tpu.ops.wavefront_pallas import (
-        render_pass_pallas, supports_pallas_grad, hard_param_slots,
-        light_sphere_sources)
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-    from real_time_ray_tracing_engine_tpu.parallel.mesh import \
-        _tile_sample_render
-    from real_time_ray_tracing_engine_tpu.parallel import train
-
-    s = rt.builders.cornell_smoke()
-    s.camera.image_width = 16
-    flat = compile_scene(s)
-    assert flat.n_mediums == 2
-    assert supports_pallas_grad(flat)           # gate lifted for mediums
-    camd = cam_mod.derive(s.camera)
-    w, h = cam_mod.image_size(s.camera)
-    seed = jnp.asarray(3, jnp.uint32)
-    g = jnp.asarray(
-        np.random.default_rng(4).normal(size=(h, w, 3)), jnp.float32)
-    kw = dict(width=w, height=h, n_strata=2, max_depth=4, n_samples=4,
-              interpret=True)
-    img, dg_tex, _ = render_pass_pallas(
-        flat, camd, seed, 0, cotangent=g,
-        hard_slots=hard_param_slots(flat),
-        light_src=light_sphere_sources(flat), **kw)
-    assert np.isfinite(np.asarray(img)).all()
-
-    def replay(tc):
-        return _tile_sample_render(
-            flat.replace(tex_color=tc), camd, seed, width=w, height_local=h,
-            row0=jnp.asarray(0, jnp.int32), n_strata=2, spp_local=4,
-            sample0=jnp.asarray(0, jnp.int32), max_depth=4,
-            sky_gradient=False)
-
-    _, vjp = jax.vjp(replay, flat.tex_color)
-    (d_tc,) = vjp(g)
-    # the smoke tints' rows must carry real signal
-    assert np.abs(np.asarray(d_tc)).max() > 0.05
-    np.testing.assert_allclose(np.asarray(dg_tex), np.asarray(d_tc),
-                               rtol=2e-2, atol=2e-3)
-
-
-def test_kernel_render_vjp_matches_jax_engine():
-    """make_train_step(engine='pallas'): the fused-kernel forward must yield
-    the jax-engine loss (fp32 kernel-vs-oracle tolerance) and bit-identical
-    parameter updates (its backward IS the baked jax replay).
-    VERDICT round-1 item 1."""
-    import optax
-    from real_time_ray_tracing_engine_tpu.parallel import train
-    from real_time_ray_tracing_engine_tpu.parallel.mesh import make_render_mesh
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-
-    s = rt.builders.cornell_box()
-    s.camera.image_width = 32
-    s.camera.samples_per_pixel = 4
-    s.camera.max_depth = 3
-    flat = compile_scene(s)
-    mesh = make_render_mesh(4, 2)
-    W, H = cam_mod.image_size(s.camera)
-    cam = cam_mod.derive(s.camera)
-    ns = cam_mod.sqrt_spp(s.camera)
-    target = jnp.zeros((H, W, 3), jnp.float32)
-    opt = optax.adam(1e-2)
-    params = train.get_params(flat)
-    st = opt.init(params)
-
-    outs = {}
-    for eng in ("jax", "pallas"):
-        step = train.make_train_step(
-            opt, mesh=mesh, width=W, height=H, n_strata=ns, max_depth=3,
-            flat=flat, engine=eng)
-        outs[eng] = step(params, st, None, cam, 0, target)
-
-    l_jax, l_pal = float(outs["jax"][2]), float(outs["pallas"][2])
-    np.testing.assert_allclose(l_pal, l_jax, rtol=1e-3)
-    for k in params:
-        # same backward function, but separately compiled XLA programs:
-        # allow fp32 reassociation noise on the ~1e-2-scale adam updates
-        np.testing.assert_allclose(
-            np.asarray(outs["jax"][0][k]), np.asarray(outs["pallas"][0][k]),
-            atol=3e-4, rtol=0, err_msg=f"param update mismatch for {k}")
-
-
-def test_scan_mode_fused_tex_grad_matches_kernel_fd():
-    """tex_color-only fused backward on a SCAN-mode scene (>64 prims, small
-    texture table): the weight-plane recurrence routes gradients through the
-    resolved per-prim rows' eff texture ids (cols 15-17, _pack_tables) —
-    validated against common-random-numbers central differences of the
-    kernel itself, like the unrolled-mode test above. Round-3 extension of
-    VERDICT round-2 item 1 (ROADMAP: grad_tex for scan/BVH-mode scenes)."""
-    from real_time_ray_tracing_engine_tpu.ops.wavefront_pallas import (
-        render_pass_pallas, pallas_scan_grad_gate_reason,
-        pallas_grad_gate_reason)
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-
-    rng = np.random.default_rng(2)
-    mats = [rt.Lambertian(rt.SolidColor((.8, .3, .2))),
-            rt.Lambertian(rt.SolidColor((.2, .7, .4))),
-            rt.Lambertian(rt.Checker(0.8, rt.SolidColor((.9, .9, .1)),
-                                     rt.SolidColor((.1, .1, .8)))),
-            rt.Metal((.9, .8, .7), 0.2)]
-    objs = []
-    for i in range(80):          # > MAX_PRIMS_UNROLL -> scan mode
-        c = tuple(map(float, rng.uniform(-4, 4, 3)))
-        objs.append(rt.Sphere(c, 0.35, mats[i % len(mats)]))
-    objs.append(rt.Quad((-6, -6, -7), (12, 0, 0), (0, 12, 0),
-                        rt.DiffuseLight(rt.SolidColor((4., 4., 4.)))))
-    cam = rt.CameraConfig(aspect_ratio=1.0, image_width=16,
-                          samples_per_pixel=4, max_depth=3, vfov=60,
-                          lookfrom=(0, 0, 9), lookat=(0, 0, 0),
-                          background=(0.2, 0.25, 0.3))
-    scene = rt.Scene(objects=objs, lights=[], camera=cam, name="scan_grad")
-    flat = compile_scene(scene)
-    assert pallas_grad_gate_reason(flat) is not None      # not unrolled
-    assert pallas_scan_grad_gate_reason(flat) is None     # tex-only OK
-    camst = cam_mod.derive(cam)
-    w, h = cam_mod.image_size(cam)
-    seed = jnp.asarray(5, jnp.uint32)
-    kw = dict(width=w, height=h, n_strata=2, max_depth=3, n_samples=4,
-              interpret=True)
-    g = jnp.asarray(rng.normal(size=(h, w, 3)), jnp.float32)
-
-    img, dg, _ = render_pass_pallas(flat, camst, seed, 0, cotangent=g, **kw)
-    img0 = render_pass_pallas(flat, camst, seed, 0, **kw)
-    np.testing.assert_allclose(np.asarray(img), np.asarray(img0), atol=1e-6)
-
-    tc = np.asarray(flat.tex_color)
-    eps = 1e-3
-    checked = 0
-    for t in range(tc.shape[0]):
-        if abs(float(np.asarray(dg)[t, 0])) < 1e-4:
-            continue
-        p, m = tc.copy(), tc.copy()
-        p[t, 0] += eps
-        m[t, 0] -= eps
-        d = (np.asarray(render_pass_pallas(
-                 flat.replace(tex_color=jnp.asarray(p)), camst, seed, 0,
-                 **kw))
-             - np.asarray(render_pass_pallas(
-                 flat.replace(tex_color=jnp.asarray(m)), camst, seed, 0,
-                 **kw)))
-        fd = float((d * np.asarray(g)).sum() / (2 * eps))
-        np.testing.assert_allclose(float(np.asarray(dg)[t, 0]), fd,
-                                   rtol=5e-3, atol=1e-5,
-                                   err_msg=f"tex row {t}")
-        checked += 1
-    assert checked >= 3
-
-
-def test_suffix_tex_grad_matches_weight_planes():
-    """The O(1)-in-NT suffix-radiance backward (NT > MAX_GRAD_TEXS switches
-    _make_kernel to the two-phase trace+replay estimator) must agree with
-    the exact per-lane weight-plane backward on the same scene. 41 distinct
-    albedos (> MAX_GRAD_TEXS=32) trigger suffix mode; the oracle run forces
-    weight planes by patching the threshold. Agreement is bit-level in
-    practice: both route the same events, the suffix form just factors the
-    downstream radiance as (T - P_after)/at instead of carrying per-row
-    planes (round-4, VERDICT round-3 item 2)."""
-    import real_time_ray_tracing_engine_tpu.ops.wavefront_pallas as wp
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-
-    rng = np.random.default_rng(5)
-    objs = []
-    for i in range(40):
-        c = tuple(map(float, rng.uniform(-4, 4, 3)))
-        albedo = tuple(map(float, rng.uniform(0.2, 0.9, 3)))
-        m = (rt.Metal(albedo, fuzz=0.2) if i % 5 == 0
-             else rt.Lambertian(rt.SolidColor(albedo)))
-        objs.append(rt.Sphere(c, 0.5, m))
-    light = rt.Sphere((0, 8, 0), 2.0,
-                      rt.DiffuseLight(rt.SolidColor((6., 6., 6.))))
-    objs.append(light)
-    scene = rt.Scene(objects=objs, lights=[light],
-                     camera=rt.CameraConfig(
-                         image_width=24, aspect_ratio=1.0,
-                         samples_per_pixel=4, max_depth=4, vfov=45,
-                         lookfrom=(0, 2, 11), lookat=(0, 0, 0),
-                         background=(0.3, 0.4, 0.6)))
-    flat = compile_scene(scene)
-    assert flat.tex_color.shape[0] > wp.MAX_GRAD_TEXS
-    camst = cam_mod.derive(scene.camera)
-    w, h = cam_mod.image_size(scene.camera)
-    g = jnp.asarray(rng.normal(size=(h, w, 3)), jnp.float32)
-    kw = dict(width=w, height=h, n_strata=2, max_depth=4, n_samples=4,
-              interpret=True, cotangent=g)
-    seed = jnp.asarray(0, jnp.uint32)
-    img_s, dg_s, _ = wp.render_pass_pallas(flat, camst, seed, 0, **kw)
-    old = wp.MAX_GRAD_TEXS
-    try:
-        wp.MAX_GRAD_TEXS = 10**6          # force the weight-plane oracle
-        img_w, dg_w, _ = wp.render_pass_pallas(flat, camst, seed, 0, **kw)
-    finally:
-        wp.MAX_GRAD_TEXS = old
-    np.testing.assert_allclose(np.asarray(img_s), np.asarray(img_w),
-                               atol=1e-6)
-    np.testing.assert_allclose(np.asarray(dg_s), np.asarray(dg_w),
-                               rtol=1e-4, atol=1e-5)
-
-
-def test_bouncing_spheres_suffix_grad_matches_kernel_fd():
-    """The flagship 485-prim / 460-texture bouncing_spheres scene
-    (main.cpp:73-131) trains fused: NT far beyond MAX_GRAD_TEXS routes
-    through the suffix-radiance backward in vscan mode — the exact case the
-    round-3 judge verified fell to the ~600x replay. FD-validated against
-    the kernel itself with common random numbers (VERDICT item 2 'done'
-    criterion). Exercises movers, checker ground, metal/dielectric and the
-    one-hot row routing across 4 accumulator chunks."""
-    from real_time_ray_tracing_engine_tpu.ops.wavefront_pallas import (
-        render_pass_pallas, pallas_scan_grad_gate_reason, MAX_GRAD_TEXS)
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-
-    scene = rt.builders.bouncing_spheres(image_width=24)
-    flat = compile_scene(scene)
-    NT = flat.tex_color.shape[0]
-    assert NT > MAX_GRAD_TEXS
-    assert pallas_scan_grad_gate_reason(flat) is None   # no more NT gate
-    camst = cam_mod.derive(scene.camera)
-    w, h = cam_mod.image_size(scene.camera)
-    rng = np.random.default_rng(9)
-    g = jnp.asarray(rng.normal(size=(h, w, 3)), jnp.float32)
-    seed = jnp.asarray(3, jnp.uint32)
-    kw = dict(width=w, height=h, n_strata=2, max_depth=3, n_samples=4,
-              sky_gradient=True, interpret=True)
-
-    img, dg, _ = render_pass_pallas(flat, camst, seed, 0, cotangent=g, **kw)
-    img0 = render_pass_pallas(flat, camst, seed, 0, **kw)
-    np.testing.assert_allclose(np.asarray(img), np.asarray(img0), atol=1e-6)
-
-    dg = np.asarray(dg)
-    tc = np.asarray(flat.tex_color)
-    eps = 1e-3
-    # check the largest-gradient rows (they span multiple 128-row chunks)
-    order = np.argsort(-np.abs(dg[:, 1]))
-    checked = 0
-    for t in order[:24:4]:
-        p, m = tc.copy(), tc.copy()
-        p[t, 1] += eps
-        m[t, 1] -= eps
-        d = (np.asarray(render_pass_pallas(
-                 flat.replace(tex_color=jnp.asarray(p)), camst, seed, 0,
-                 **kw))
-             - np.asarray(render_pass_pallas(
-                 flat.replace(tex_color=jnp.asarray(m)), camst, seed, 0,
-                 **kw)))
-        fd = float((d * np.asarray(g)).sum() / (2 * eps))
-        np.testing.assert_allclose(float(dg[t, 1]), fd, rtol=1e-2,
-                                   atol=1e-4, err_msg=f"tex row {t}")
-        checked += 1
-    assert checked >= 4
-
-
-def test_vscan_hard_slots_match_kernel_fd():
-    """Hard-parameter fused backward on a VSCAN-mode scene (>64 prims;
-    VERDICT round-3 item 5): fuzz / IOR / sphere center / sphere radius
-    slots alias the winner's gathered scalars against traced theta reads
-    (closest_hit_vscan post-gather aliasing; selection runs detached
-    outside the linearized physics). Validated against common-random-
-    numbers central differences of the kernel itself, one slot per
-    family."""
-    import real_time_ray_tracing_engine_tpu.ops.wavefront_pallas as wp
-    from real_time_ray_tracing_engine_tpu.scene.flat import (MAT_METAL,
-                                                             MAT_DIELECTRIC)
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-
-    rng = np.random.default_rng(21)
-    objs = []
-    for i in range(78):
-        c = tuple(map(float, rng.uniform(-4, 4, 3)))
-        albedo = tuple(map(float, rng.uniform(0.25, 0.9, 3)))
-        m = (rt.Metal(albedo, fuzz=0.25) if i % 9 == 0 else
-             rt.Dielectric(1.5) if i == 4 else
-             rt.Lambertian(rt.SolidColor(albedo)))
-        objs.append(rt.Sphere(c, 0.5, m))
-    light = rt.Sphere((0, 8, 0), 2.0,
-                      rt.DiffuseLight(rt.SolidColor((6., 6., 6.))))
-    objs.append(light)
-    scene = rt.Scene(objects=objs, lights=[light],
-                     camera=rt.CameraConfig(
-                         image_width=24, aspect_ratio=1.0,
-                         samples_per_pixel=4, max_depth=4, vfov=45,
-                         lookfrom=(0, 2, 11), lookat=(0, 0, 0),
-                         background=(0.3, 0.4, 0.6)))
-    flat = compile_scene(scene)
-    assert wp._kernel_modes(flat)[3]                    # vscan selected
-    assert wp.pallas_hard_slots_gate_reason(flat, 4) is None
-    mt = np.asarray(flat.mat_type)
-    m_metal = int(np.where(mt == MAT_METAL)[0][0])
-    m_diel = int(np.where(mt == MAT_DIELECTRIC)[0][0])
-    p = 7
-    slots = (("fuzz", m_metal), ("ior", m_diel), ("sphc", p, 1),
-             ("sphr", p))
-    camst = cam_mod.derive(scene.camera)
-    w, h = cam_mod.image_size(scene.camera)
-    g = jnp.asarray(rng.normal(size=(h, w, 3)), jnp.float32)
-    kw = dict(width=w, height=h, n_strata=2, max_depth=4, n_samples=4,
-              interpret=True)
-    seed = jnp.asarray(0, jnp.uint32)
-    img, _, dg_hard = wp.render_pass_pallas(
-        flat, camst, seed, 0, cotangent=g, hard_slots=slots,
-        light_src=wp.light_sphere_sources(flat), want_tex=False, **kw)
-    img0 = wp.render_pass_pallas(flat, camst, seed, 0, **kw)
-    np.testing.assert_allclose(np.asarray(img), np.asarray(img0),
-                               atol=1e-6)
-    dg_hard = np.asarray(dg_hard)
-
-    def fd(field, idx, eps):
-        def wiggle(delta):
-            arr = np.asarray(getattr(flat, field)).copy()
-            arr[idx] += delta
-            return flat.replace(**{field: jnp.asarray(arr)})
-        d = (np.asarray(wp.render_pass_pallas(wiggle(eps), camst, seed, 0,
-                                              **kw))
-             - np.asarray(wp.render_pass_pallas(wiggle(-eps), camst, seed,
-                                                0, **kw)))
-        return float((d * np.asarray(g)).sum() / (2 * eps))
-
-    for k, (f, idx, eps) in enumerate(
-            [("mat_fuzz", m_metal, 1e-3), ("mat_ior", m_diel, 1e-3),
-             ("sph_center", (p, 1), 2e-3), ("sph_radius", p, 2e-3)]):
-        np.testing.assert_allclose(dg_hard[k], fd(f, idx, eps), rtol=2e-2,
-                                   atol=2e-3, err_msg=f)
-
-
-def test_stack_bvh_suffix_tex_grad_matches_weight_planes(monkeypatch):
-    """The suffix tex backward must also cover the opt-in shared-stack BVH
-    kernel (RTX_BVH_STACK=1) — its event routing and per-lane gathers live
-    at kernel scope, shared by every mode. Mixed sphere/quad leaves, 41
-    textures (> MAX_GRAD_TEXS) vs the weight-plane oracle."""
-    monkeypatch.setenv("RTX_BVH_STACK", "1")
-    import real_time_ray_tracing_engine_tpu.ops.wavefront_pallas as wp
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-
-    rng = np.random.default_rng(6)
-    objs = []
-    for i in range(36):
-        c = tuple(map(float, rng.uniform(-4, 4, 3)))
-        albedo = tuple(map(float, rng.uniform(0.2, 0.9, 3)))
-        objs.append(rt.Sphere(c, 0.5, rt.Lambertian(rt.SolidColor(albedo))))
-    for i in range(30):
-        c = rng.uniform(-4.0, 4.0, 3)
-        u = rng.uniform(0.4, 1.0, 3) * np.array([1.0, 0.0, 1.0])
-        v = rng.uniform(0.4, 1.0, 3) * np.array([0.0, 1.0, 1.0])
-        albedo = tuple(map(float, rng.uniform(0.2, 0.9, 3)))
-        objs.append(rt.Quad(tuple(map(float, c)), tuple(map(float, u)),
-                            tuple(map(float, v)),
-                            rt.Lambertian(rt.SolidColor(albedo))))
-    light = rt.Sphere((0, 8, 0), 2.0,
-                      rt.DiffuseLight(rt.SolidColor((6., 6., 6.))))
-    objs.append(light)
-    scene = rt.Scene(objects=objs, lights=[light],
-                     camera=rt.CameraConfig(
-                         image_width=24, aspect_ratio=1.0,
-                         samples_per_pixel=4, max_depth=4, vfov=45,
-                         lookfrom=(0, 2, 11), lookat=(0, 0, 0),
-                         background=(0.3, 0.4, 0.6)))
-    flat = compile_scene(scene, use_bvh=True)
-    assert wp._kernel_modes(flat)[2]                 # stack-BVH selected
-    assert flat.tex_color.shape[0] > wp.MAX_GRAD_TEXS
-    camst = cam_mod.derive(scene.camera)
-    w, h = cam_mod.image_size(scene.camera)
-    g = jnp.asarray(rng.normal(size=(h, w, 3)), jnp.float32)
-    kw = dict(width=w, height=h, n_strata=2, max_depth=4, n_samples=4,
-              interpret=True, cotangent=g)
-    seed = jnp.asarray(0, jnp.uint32)
-    _, dg_s, _ = wp.render_pass_pallas(flat, camst, seed, 0, **kw)
-    old = wp.MAX_GRAD_TEXS
-    try:
-        wp.MAX_GRAD_TEXS = 10**6
-        _, dg_w, _ = wp.render_pass_pallas(flat, camst, seed, 0, **kw)
-    finally:
-        wp.MAX_GRAD_TEXS = old
-    np.testing.assert_allclose(np.asarray(dg_s), np.asarray(dg_w),
-                               rtol=1e-4, atol=1e-5)
-
-
-def test_mixed_tier_backward_vscan_geometry(capsys, monkeypatch):
-    """Mixed-tier backward (round-4 VERDICT item 2): on a vscan scene whose
-    requested GEOMETRY slots exceed MAX_HARD_SLOTS_VSCAN, make_kernel_render
-    must run the fused tex_color backward at kernel speed and replay ONLY
-    the hard families — not collapse tex_color into the replay too. The
-    combined gradient must match jax.vjp of the full pure-JAX replay.
-    (RTX_ADJOINT=0 keeps the round-5 adjoint backward out of the way so
-    the mixed tier is actually exercised; with the adjoint enabled this
-    scene never reaches it.)"""
-    monkeypatch.setenv("RTX_ADJOINT", "0")
-    import real_time_ray_tracing_engine_tpu.ops.wavefront_pallas as wp
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-    from real_time_ray_tracing_engine_tpu.parallel import train
-    from real_time_ray_tracing_engine_tpu.parallel.mesh import (
-        make_render_mesh, _tile_sample_render)
-
-    rng = np.random.default_rng(33)
-    objs = []
-    for i in range(78):
-        c = tuple(map(float, rng.uniform(-4, 4, 3)))
-        albedo = tuple(map(float, rng.uniform(0.25, 0.9, 3)))
-        objs.append(rt.Sphere(c, 0.5, rt.Lambertian(rt.SolidColor(albedo))))
-    light = rt.Sphere((0, 8, 0), 2.0,
-                      rt.DiffuseLight(rt.SolidColor((6., 6., 6.))))
-    objs.append(light)
-    scene = rt.Scene(objects=objs, lights=[light],
-                     camera=rt.CameraConfig(
-                         image_width=16, aspect_ratio=1.0,
-                         samples_per_pixel=4, max_depth=3, vfov=45,
-                         lookfrom=(0, 2, 11), lookat=(0, 0, 0),
-                         background=(0.3, 0.4, 0.6)))
-    flat = compile_scene(scene)
-    assert wp._kernel_modes(flat)[3]                    # vscan selected
-    requested = {"tex_color", "sph_center"}
-    slots = wp.hard_param_slots(flat, {"sph_center"})
-    assert len(slots) > wp.MAX_HARD_SLOTS_VSCAN          # forces mixed tier
-    assert wp.pallas_scan_grad_gate_reason(flat) is None  # tex gate clear
-
-    mesh = make_render_mesh(1, 1, devices=jax.devices()[:1])
-    W, H = cam_mod.image_size(scene.camera)
-    cam = cam_mod.derive(scene.camera)
-    render = train.make_kernel_render(
-        flat, mesh=mesh, width=W, height=H, n_strata=2, max_depth=3)
-    g = jnp.asarray(rng.normal(size=(H, W, 3)), jnp.float32)
-    params = {k: v for k, v in train.get_params(flat).items()
-              if k in requested}
-
-    def loss(p):
-        return jnp.sum(render(p, cam, jnp.asarray(0.0)) * g)
-
-    dp = jax.jit(jax.grad(loss))(params)
-    err = capsys.readouterr().err
-    assert "mixed-tier backward" in err, err
-
-    seed = jnp.asarray(0, jnp.uint32)
-
-    def replay(p):
-        return _tile_sample_render(
-            train.set_params(flat, p), cam, seed, width=W, height_local=H,
-            row0=jnp.asarray(0, jnp.int32), n_strata=2, spp_local=4,
-            sample0=jnp.asarray(0, jnp.int32), max_depth=3,
-            sky_gradient=False) / 4.0
-
-    _, vjp = jax.vjp(replay, params)
-    (want,) = vjp(g)
-    np.testing.assert_allclose(np.asarray(dp["sph_center"]),
-                               np.asarray(want["sph_center"]),
-                               rtol=2e-2, atol=2e-3)
-    np.testing.assert_allclose(np.asarray(dp["tex_color"]),
-                               np.asarray(want["tex_color"]),
-                               rtol=2e-2, atol=2e-3)
-    # real signal reached both tiers
-    assert float(np.abs(np.asarray(dp["sph_center"])).max()) > 1e-4
-    assert float(np.abs(np.asarray(dp["tex_color"])).max()) > 1e-4
-
-
-# ---------------------------------------------------------------- adjoint
-def _adjoint_grads(flat, camd, seed, g, kw):
-    from real_time_ray_tracing_engine_tpu.ops.wavefront_pallas import (
-        render_pass_pallas, light_sphere_sources)
-    return render_pass_pallas(flat, camd, seed, 0, cotangent=g,
-                              adjoint=True,
-                              light_src=light_sphere_sources(flat), **kw)
-
-
-def test_adjoint_grad_matches_kernel_fd_vscan():
-    """The in-kernel ADJOINT backward (reverse-mode, round-5 VERDICT item
-    1) on a vscan scene with every material family and a sphere MIS light.
-
-    Oracle: the FD-validated forward-mode kernel backwards over the SAME
-    estimator and the SAME vscan winner selection — per-slot tangent
-    bundles for fuzz/IOR/geometry (incl. the light sphere, exercising the
-    adjoint's traced light-scalar inputs) and the suffix-radiance
-    estimator for tex_color. Two completely different differentiation
-    mechanisms must agree to float noise. (Raw FD/replay comparisons can
-    disagree at discrete visibility/selection boundaries; the existing
-    vscan FD tests anchor the tangent path, this test anchors the adjoint
-    to it.) One kernel-FD spot check on a geometry slot guards against
-    both mechanisms being wrong together."""
-    import real_time_ray_tracing_engine_tpu.ops.wavefront_pallas as wp
-    from real_time_ray_tracing_engine_tpu.scene.flat import (MAT_METAL,
-                                                             MAT_DIELECTRIC)
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-
-    rng = np.random.default_rng(21)
-    objs = []
-    for i in range(78):
-        c = tuple(map(float, rng.uniform(-4, 4, 3)))
-        albedo = tuple(map(float, rng.uniform(0.25, 0.9, 3)))
-        m = (rt.Metal(albedo, fuzz=0.25) if i % 9 == 0 else
-             rt.Dielectric(1.5) if i == 4 else
-             rt.Lambertian(rt.SolidColor(albedo)))
-        objs.append(rt.Sphere(c, 0.5, m))
-    light = rt.Sphere((0, 8, 0), 2.0,
-                      rt.DiffuseLight(rt.SolidColor((6., 6., 6.))))
-    objs.append(light)
-    scene = rt.Scene(objects=objs, lights=[light],
-                     camera=rt.CameraConfig(
-                         image_width=12, aspect_ratio=1.0,
-                         samples_per_pixel=4, max_depth=4, vfov=45,
-                         lookfrom=(0, 2, 11), lookat=(0, 0, 0),
-                         background=(0.3, 0.4, 0.6)))
-    flat = compile_scene(scene)
-    assert wp._kernel_modes(flat)[3]
-    assert wp.pallas_adjoint_gate_reason(flat) is None
-    camd = cam_mod.derive(scene.camera)
-    w, h = cam_mod.image_size(scene.camera)
-    g = jnp.asarray(np.random.default_rng(5).normal(size=(h, w, 3)),
-                    jnp.float32)
-    seed = jnp.asarray(0, jnp.uint32)
-    kw = dict(width=w, height=h, n_strata=2, max_depth=4, n_samples=4,
-              interpret=True)
-    img, grads = _adjoint_grads(flat, camd, seed, g, kw)
-    assert np.isfinite(np.asarray(img)).all()
-    for f in grads:
-        assert np.isfinite(np.asarray(grads[f])).all(), f
-
-    mt = np.asarray(flat.mat_type)
-    m_metal = int(np.where(mt == MAT_METAL)[0][0])
-    m_diel = int(np.where(mt == MAT_DIELECTRIC)[0][0])
-    light_row = int(np.asarray(flat.light_prim)[0])
-    slots = (("fuzz", m_metal), ("ior", m_diel), ("sphc", 7, 1),
-             ("sphr", 7), ("sphc", light_row, 0))
-    img0, dg_tex, dg_hard = wp.render_pass_pallas(
-        flat, camd, seed, 0, cotangent=g, hard_slots=slots,
-        light_src=wp.light_sphere_sources(flat), want_tex=True, **kw)
-    # identical primal estimator (vscan forward both ways)
-    np.testing.assert_allclose(np.asarray(img), np.asarray(img0),
-                               atol=1e-5)
-    dg_hard = np.asarray(dg_hard)
-    vals = [float(np.asarray(grads["mat_fuzz"])[m_metal]),
-            float(np.asarray(grads["mat_ior"])[m_diel]),
-            float(np.asarray(grads["sph_center"])[7, 1]),
-            float(np.asarray(grads["sph_radius"])[7]),
-            float(np.asarray(grads["sph_center"])[light_row, 0])]
-    for k, slot in enumerate(slots):
-        np.testing.assert_allclose(vals[k], dg_hard[k], rtol=1e-3,
-                                   atol=1e-4 * max(abs(dg_hard[k]), 1.0),
-                                   err_msg=str(slot))
-    assert abs(vals[4]) > 1e-3          # light-path signal is real
-    # tex_color vs the suffix estimator (exact here: albedos > 0)
-    assert flat.tex_color.shape[0] > wp.MAX_GRAD_TEXS
-    np.testing.assert_allclose(np.asarray(grads["tex_color"]),
-                               np.asarray(dg_tex), rtol=1e-3, atol=1e-4)
-
-    # (No raw-FD spot check here: at this scene/seed central differences
-    # cross visibility boundaries and measure the discontinuous jump; the
-    # FD anchoring of the shared estimator semantics lives in
-    # test_vscan_hard_slots_match_kernel_fd, whose scene/seed keep FD on
-    # the continuous branch.)
-
-
-def test_adjoint_grad_matches_replay_unrolled_scene():
-    """Adjoint backward on a Cornell-class (quads + sphere light + metal +
-    glass) scene — the adjoint forces the vscan path even for scenes the
-    forward runs unrolled — vs jax.vjp of the pure-JAX replay, every
-    family at once (same scene/seeds as
-    test_fused_full_grad_matches_replay, which establishes the tolerances
-    are achievable away from selection boundaries)."""
-    import real_time_ray_tracing_engine_tpu.ops.wavefront_pallas as wp
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-    from real_time_ray_tracing_engine_tpu.parallel.mesh import \
-        _tile_sample_render
-    from real_time_ray_tracing_engine_tpu.parallel import train
-
-    cam = rt.CameraConfig(aspect_ratio=1.0, image_width=20,
-                          samples_per_pixel=4, max_depth=4, vfov=40,
-                          lookfrom=(0, 2, 9), lookat=(0, 1, 0))
-    glass = rt.Dielectric(1.5)
-    glass_sphere = rt.Sphere((0, 1, 1.8), 0.8, glass)
-    scene = rt.Scene(objects=[
-        rt.Quad((-6, 0, -6), (12, 0, 0), (0, 0, 12),
-                rt.Lambertian(rt.SolidColor((0.6, 0.5, 0.4)))),
-        rt.Quad((-1.5, 5, -1.5), (3, 0, 0), (0, 0, 3),
-                rt.DiffuseLight(rt.SolidColor((6, 6, 6)))),
-        rt.Sphere((-1.6, 1, 0), 1.0,
-                  rt.Lambertian(rt.SolidColor((0.8, 0.2, 0.2)))),
-        rt.Sphere((1.6, 1, 0), 1.0, rt.Metal((0.9, 0.9, 0.9), 0.3)),
-        glass_sphere,
-    ], lights=[rt.Quad((-1.5, 5, -1.5), (3, 0, 0), (0, 0, 3),
-                       rt.Lambertian(rt.SolidColor((1, 1, 1)))),
-               glass_sphere],
-        camera=cam)
-    flat = compile_scene(scene)
-    assert wp.pallas_adjoint_gate_reason(flat) is None
-    camd = cam_mod.derive(cam)
-    w, h = cam_mod.image_size(cam)
-    seed = jnp.asarray(7, jnp.uint32)
-    g = jnp.asarray(
-        np.random.default_rng(2).normal(size=(h, w, 3)), jnp.float32)
-    kw = dict(width=w, height=h, n_strata=2, max_depth=4, n_samples=4,
-              interpret=True)
-    img, grads = _adjoint_grads(flat, camd, seed, g, kw)
-    assert np.isfinite(np.asarray(img)).all()
-
-    params = train.get_params(flat)
-
-    def replay(p):
-        return _tile_sample_render(
-            train.set_params(flat, p), camd, seed, width=w, height_local=h,
-            row0=jnp.asarray(0, jnp.int32), n_strata=2, spp_local=4,
-            sample0=jnp.asarray(0, jnp.int32), max_depth=4,
-            sky_gradient=False)
-
-    _, vjp = jax.vjp(replay, params)
-    (dp,) = vjp(g)
-    checked = 0
-    for f in ("tex_color", "sph_center", "sph_radius", "mat_fuzz",
-              "mat_ior"):
-        got = np.asarray(grads[f])
-        want = np.asarray(dp[f])
-        np.testing.assert_allclose(got, want, rtol=5e-2,
-                                   atol=5e-3 * max(np.abs(want).max(), 1.0),
-                                   err_msg=f)
-        if np.abs(want).max() > 1e-3:
-            checked += 1
-    assert checked >= 4, checked
-
-
-def test_adjoint_grad_cornell_smoke_mediums():
-    """Adjoint backward with constant mediums: the smoke tints' tex_color
-    gradients flow through the in-medium isotropic scatter (medium rows'
-    resolved materials route through the same eff-row scatter); compare
-    against the replay's tex gradients (same scene/seed as the weight-
-    plane medium test)."""
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-    from real_time_ray_tracing_engine_tpu.parallel.mesh import \
-        _tile_sample_render
-
-    s = rt.builders.cornell_smoke()
-    s.camera.image_width = 16
-    flat = compile_scene(s)
-    assert flat.n_mediums == 2
-    camd = cam_mod.derive(s.camera)
-    w, h = cam_mod.image_size(s.camera)
-    seed = jnp.asarray(3, jnp.uint32)
-    g = jnp.asarray(
-        np.random.default_rng(4).normal(size=(h, w, 3)), jnp.float32)
-    kw = dict(width=w, height=h, n_strata=2, max_depth=4, n_samples=4,
-              interpret=True)
-    img, grads = _adjoint_grads(flat, camd, seed, g, kw)
-    assert np.isfinite(np.asarray(img)).all()
-
-    def replay(tc):
-        return _tile_sample_render(
-            flat.replace(tex_color=tc), camd, seed, width=w, height_local=h,
-            row0=jnp.asarray(0, jnp.int32), n_strata=2, spp_local=4,
-            sample0=jnp.asarray(0, jnp.int32), max_depth=4,
-            sky_gradient=False)
-
-    _, vjp = jax.vjp(replay, flat.tex_color)
-    (d_tc,) = vjp(g)
-    assert np.abs(np.asarray(d_tc)).max() > 0.05
-    np.testing.assert_allclose(np.asarray(grads["tex_color"]),
-                               np.asarray(d_tc), rtol=2e-2, atol=2e-3)
-
-
-def test_adjoint_grad_checker_noise_routing():
-    """Checker parity routing (cotangents land on the parity-selected
-    CHILD row) and noise rows (eff = -1, zero tex gradient, geometry
-    still flows through the marble phase) under the adjoint backward,
-    validated by kernel FD on the adjoint's own primal."""
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-
-    checker = rt.Checker(0.6, rt.SolidColor((0.1, 0.8, 0.2)),
-                         rt.SolidColor((0.9, 0.1, 0.6)))
-    objs = [
-        rt.Sphere((0, -100.5, 0), 100.0, rt.Lambertian(checker)),
-        rt.Sphere((-1.1, 0.5, 0), 0.5,
-                  rt.Lambertian(rt.Noise(2.5))),
-        rt.Sphere((1.1, 0.5, 0), 0.5,
-                  rt.Lambertian(rt.SolidColor((0.8, 0.6, 0.2)))),
-    ]
-    scene = rt.Scene(objects=objs, camera=rt.CameraConfig(
-        image_width=12, aspect_ratio=1.0, samples_per_pixel=4,
-        max_depth=3, vfov=50, lookfrom=(0, 1.2, 4), lookat=(0, 0.4, 0),
-        background=(0.7, 0.8, 1.0)))
-    flat = compile_scene(scene)
-    assert bool(flat.has_noise)
-    camd = cam_mod.derive(scene.camera)
-    w, h = cam_mod.image_size(scene.camera)
-    g = jnp.asarray(np.random.default_rng(9).normal(size=(h, w, 3)),
-                    jnp.float32)
-    seed = jnp.asarray(0, jnp.uint32)
-    kw = dict(width=w, height=h, n_strata=2, max_depth=3, n_samples=4,
-              interpret=True)
-    img, grads = _adjoint_grads(flat, camd, seed, g, kw)
-    assert np.isfinite(np.asarray(img)).all()
-    d_tc = np.asarray(grads["tex_color"])
-    # noise rows carry no tex_color dependence
-    from real_time_ray_tracing_engine_tpu.scene.flat import TEX_NOISE
-    noise_rows = np.where(np.asarray(flat.tex_type) == TEX_NOISE)[0]
-    assert len(noise_rows) and np.abs(d_tc[noise_rows]).max() == 0.0
-    # checker child rows + solid row: FD-check one channel each
-    from real_time_ray_tracing_engine_tpu.scene.flat import TEX_SOLID
-
-    def fd(field, idx, eps):
-        def wiggle(delta):
-            arr = np.asarray(getattr(flat, field)).copy()
-            arr[idx] += delta
-            img2, _ = _adjoint_grads(flat.replace(
-                **{field: jnp.asarray(arr)}), camd, seed, g, kw)
-            return np.asarray(img2)
-        d = wiggle(eps) - wiggle(-eps)
-        return float((d * np.asarray(g)).sum() / (2 * eps))
-
-    checked = 0
-    for t in np.where(np.asarray(flat.tex_type) == TEX_SOLID)[0]:
-        if abs(d_tc[t, 1]) > 0.01:
-            np.testing.assert_allclose(
-                d_tc[t, 1], fd("tex_color", (int(t), 1), 1e-3),
-                rtol=2e-2, atol=3e-3, err_msg=f"tex row {t}")
-            checked += 1
-    assert checked >= 2, checked
-    # geometry through the marble phase (noise sphere center): FD at
-    # coarse steps aliases the turbulence octaves (measured: eps 2e-3
-    # gives -55.9 where eps <= 5e-4 converges to -39.1), so anchor to the
-    # FD-validated tangent-bundle kernel instead (same estimator; the
-    # adjoint primal matches the unrolled forward bit-exactly here)
-    import real_time_ray_tracing_engine_tpu.ops.wavefront_pallas as wp
-    _, _, dg_hard = wp.render_pass_pallas(
-        flat, camd, seed, 0, cotangent=g, hard_slots=(("sphc", 1, 0),),
-        light_src=wp.light_sphere_sources(flat), want_tex=False, **kw)
-    np.testing.assert_allclose(
-        float(np.asarray(grads["sph_center"])[1, 0]),
-        float(np.asarray(dg_hard)[0]), rtol=1e-3, atol=1e-4)
-
-
-def test_grad_compacted_matches_single_pass():
-    """The capped + compacted GRAD schedule (round-5 VERDICT item 6) must
-    reproduce the single uncapped grad pass to float-reassociation noise:
-    Wp/Dst path state rides the spilled carry through the compaction
-    permutation; Gp/dG accumulators sum across phases. Covers both the
-    weight-plane/tangent tier (Cornell, 9 hard slots) and the suffix tier
-    (bouncing_spheres, 460 texture rows)."""
-    import real_time_ray_tracing_engine_tpu.ops.wavefront_pallas as wp
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-
-    s = rt.builders.cornell_box()
-    s.camera.image_width = 20
-    flat = compile_scene(s)
-    camd = cam_mod.derive(s.camera)
-    w, h = cam_mod.image_size(s.camera)
-    g = jnp.asarray(np.random.default_rng(1).normal(size=(h, w, 3)),
-                    jnp.float32)
-    seed = jnp.asarray(0, jnp.uint32)
-    kw = dict(width=w, height=h, n_strata=3, max_depth=5, n_samples=9,
-              interpret=True, hard_slots=wp.hard_param_slots(flat),
-              light_src=wp.light_sphere_sources(flat), want_tex=True)
-    img1, t1, h1 = wp.render_pass_pallas(flat, camd, seed, 0,
-                                         cotangent=g, **kw)
-    img2, t2, h2 = wp.render_pass_pallas_grad_compacted(
-        flat, camd, seed, 0, cotangent=g, caps=(12, 6), **kw)
-    np.testing.assert_allclose(np.asarray(img1), np.asarray(img2),
-                               atol=1e-5)
-    np.testing.assert_allclose(np.asarray(t1), np.asarray(t2), rtol=1e-5,
-                               atol=1e-4)
-    np.testing.assert_allclose(np.asarray(h1), np.asarray(h2), rtol=1e-5,
-                               atol=1e-4)
-
-    s2 = rt.builders.bouncing_spheres()
-    s2.camera.image_width = 40
-    flat2 = compile_scene(s2)
-    camd2 = cam_mod.derive(s2.camera)
-    w2, h2_ = cam_mod.image_size(s2.camera)
-    g2 = jnp.asarray(np.random.default_rng(2).normal(size=(h2_, w2, 3)),
-                     jnp.float32)
-    assert flat2.tex_color.shape[0] > wp.MAX_GRAD_TEXS   # suffix tier
-    kw2 = dict(width=w2, height=h2_, n_strata=3, max_depth=5, n_samples=9,
-               interpret=True, hard_slots=(),
-               light_src=wp.light_sphere_sources(flat2), want_tex=True)
-    i1, tt1, _ = wp.render_pass_pallas(flat2, camd2, seed, 0,
-                                       cotangent=g2, **kw2)
-    i2, tt2, _ = wp.render_pass_pallas_grad_compacted(
-        flat2, camd2, seed, 0, cotangent=g2, caps=(10, 6), **kw2)
-    np.testing.assert_allclose(np.asarray(i1), np.asarray(i2), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(tt1), np.asarray(tt2),
-                               rtol=1e-5, atol=1e-4)
-
-
-def test_adjoint_grad_vquad_city():
-    """Adjoint backward on a vquad-mode scene (>64 quads move to chunk
-    tables; the adjoint gathers the winner quad's plane eq as constant
-    planes and re-derives its t differentiably). Cross-checked against
-    the tangent-bundle + suffix kernels on the identical estimator, like
-    the vscan test."""
-    import real_time_ray_tracing_engine_tpu.ops.wavefront_pallas as wp
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-
-    rng = np.random.default_rng(3)
-    objs = []
-    for i in range(12):
-        x, z = rng.uniform(-10, 10, 2)
-        hgt = float(rng.uniform(1, 4))
-        albedo = tuple(map(float, rng.uniform(0.3, 0.9, 3)))
-        objs.append(rt.Box((x, 0, z), (x + 1.5, hgt, z + 1.5),
-                           rt.Lambertian(rt.SolidColor(albedo))))
-    objs.append(rt.Quad((-20, 0, -20), (40, 0, 0), (0, 0, 40),
-                        rt.Lambertian(rt.SolidColor((0.5, 0.5, 0.5)))))
-    objs.append(rt.Sphere((0, 2, 3), 1.2, rt.Metal((0.9, 0.8, 0.7), 0.2)))
-    objs.append(rt.Sphere((-3, 1.2, 1), 1.0,
-                          rt.Lambertian(rt.SolidColor((0.8, 0.3, 0.2)))))
-    scene = rt.Scene(objects=objs, camera=rt.CameraConfig(
-        image_width=16, aspect_ratio=1.0, samples_per_pixel=4, max_depth=4,
-        vfov=40, lookfrom=(14, 7, 14), lookat=(0, 1, 0),
-        sky_gradient=True))
-    flat = compile_scene(scene)
-    assert flat.quad_corner.shape[0] > wp.MAX_QUADS_VSCAN   # vquad regime
-    assert wp.pallas_adjoint_gate_reason(flat) is None
-    camd = cam_mod.derive(scene.camera)
-    w, h = cam_mod.image_size(scene.camera)
-    g = jnp.asarray(np.random.default_rng(8).normal(size=(h, w, 3)),
-                    jnp.float32)
-    seed = jnp.asarray(0, jnp.uint32)
-    kw = dict(width=w, height=h, n_strata=2, max_depth=4, n_samples=4,
-              sky_gradient=True, interpret=True)
-    img, grads = _adjoint_grads(flat, camd, seed, g, kw)
-    assert np.isfinite(np.asarray(img)).all()
-
-    from real_time_ray_tracing_engine_tpu.scene.flat import MAT_METAL
-    m_metal = int(np.where(np.asarray(flat.mat_type) == MAT_METAL)[0][0])
-    sph = int(np.where(np.asarray(flat.sph_active))[0][0])
-    slots = (("fuzz", m_metal), ("sphc", sph, 0), ("sphr", sph))
-    img0, dg_tex, dg_hard = wp.render_pass_pallas(
-        flat, camd, seed, 0, cotangent=g, hard_slots=slots,
-        light_src=wp.light_sphere_sources(flat), want_tex=True, **kw)
-    np.testing.assert_allclose(np.asarray(img), np.asarray(img0),
-                               atol=1e-5)
-    dg_hard = np.asarray(dg_hard)
-    vals = [float(np.asarray(grads["mat_fuzz"])[m_metal]),
-            float(np.asarray(grads["sph_center"])[sph, 0]),
-            float(np.asarray(grads["sph_radius"])[sph])]
-    for k, slot in enumerate(slots):
-        np.testing.assert_allclose(vals[k], dg_hard[k], rtol=1e-3,
-                                   atol=1e-4 * max(abs(dg_hard[k]), 1.0),
-                                   err_msg=str(slot))
-    np.testing.assert_allclose(np.asarray(grads["tex_color"]),
-                               np.asarray(dg_tex), rtol=1e-3, atol=1e-4)
-    # real signal on the box tex rows (quad winners route through vquad)
-    assert float(np.abs(np.asarray(dg_tex)).max()) > 0.05
-
-
-def test_adjoint_segmented_matches_per_sample():
-    """The segmented-regeneration adjoint sweep (round 5, late: full lane
-    occupancy, lambda chain cut at stored regeneration boundaries) must
-    reproduce the per-sample two-phase adjoint exactly — same per-(pixel,
-    sample, bounce) values, different orchestration — to float
-    reassociation noise, on a scene with every material family and a
-    sphere light."""
-    import real_time_ray_tracing_engine_tpu.ops.wavefront_pallas as wp
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-
-    rng = np.random.default_rng(21)
-    objs = []
-    for i in range(78):
-        c = tuple(map(float, rng.uniform(-4, 4, 3)))
-        albedo = tuple(map(float, rng.uniform(0.25, 0.9, 3)))
-        m = (rt.Metal(albedo, fuzz=0.25) if i % 9 == 0 else
-             rt.Dielectric(1.5) if i == 4 else
-             rt.Lambertian(rt.SolidColor(albedo)))
-        objs.append(rt.Sphere(c, 0.5, m))
-    light = rt.Sphere((0, 8, 0), 2.0,
-                      rt.DiffuseLight(rt.SolidColor((6., 6., 6.))))
-    objs.append(light)
-    scene = rt.Scene(objects=objs, lights=[light],
-                     camera=rt.CameraConfig(
-                         image_width=10, aspect_ratio=1.0,
-                         samples_per_pixel=4, max_depth=4, vfov=45,
-                         lookfrom=(0, 2, 11), lookat=(0, 0, 0),
-                         background=(0.3, 0.4, 0.6)))
-    flat = compile_scene(scene)
-    camd = cam_mod.derive(scene.camera)
-    w, h = cam_mod.image_size(scene.camera)
-    g = jnp.asarray(np.random.default_rng(5).normal(size=(h, w, 3)),
-                    jnp.float32)
-    seed = jnp.asarray(0, jnp.uint32)
-    ls = wp.light_sphere_sources(flat)
-    kw = dict(width=w, height=h, n_strata=2, max_depth=4, n_samples=4,
-              interpret=True)
-    img1, g1 = wp.render_pass_pallas(flat, camd, seed, 0, cotangent=g,
-                                     adjoint=True, light_src=ls, **kw)
-    # seg=6 deliberately does not divide any path length or sample count
-    img2, g2 = wp.render_pass_pallas(flat, camd, seed, 0, cotangent=g,
-                                     adjoint=True, adjoint_seg=6,
-                                     light_src=ls, **kw)
-    np.testing.assert_allclose(np.asarray(img1), np.asarray(img2),
-                               atol=1e-6)
-    for f in g1:
-        a, b = np.asarray(g1[f]), np.asarray(g2[f])
-        np.testing.assert_allclose(
-            a, b, rtol=1e-5, atol=1e-5 * max(np.abs(a).max(), 1.0),
-            err_msg=f)
-
-
-def test_train_adjoint_tier_matches_direct_call():
-    """make_kernel_render must route a >32-slot geometry request through
-    the adjoint backward (round-5 tier policy) and produce exactly the
-    gradients of a direct render_pass_pallas(adjoint=True) call on the
-    same shard (1x1 mesh, identical estimator and sweep)."""
-    import real_time_ray_tracing_engine_tpu.ops.wavefront_pallas as wp
-    from real_time_ray_tracing_engine_tpu.models import camera as cam_mod
-    from real_time_ray_tracing_engine_tpu.parallel import train
-    from real_time_ray_tracing_engine_tpu.parallel.mesh import \
-        make_render_mesh
-
-    rng = np.random.default_rng(33)
-    objs = []
-    for i in range(78):
-        c = tuple(map(float, rng.uniform(-4, 4, 3)))
-        albedo = tuple(map(float, rng.uniform(0.25, 0.9, 3)))
-        objs.append(rt.Sphere(c, 0.5, rt.Lambertian(rt.SolidColor(albedo))))
-    light = rt.Sphere((0, 8, 0), 2.0,
-                      rt.DiffuseLight(rt.SolidColor((6., 6., 6.))))
-    objs.append(light)
-    scene = rt.Scene(objects=objs, lights=[light], camera=rt.CameraConfig(
-        image_width=12, aspect_ratio=1.0, samples_per_pixel=4, max_depth=3,
-        vfov=45, lookfrom=(0, 2, 11), lookat=(0, 0, 0),
-        background=(0.3, 0.4, 0.6)))
-    flat = compile_scene(scene)
-    requested = {"tex_color", "sph_center", "sph_radius"}
-    slots = wp.hard_param_slots(flat, requested - {"tex_color"})
-    assert len(slots) >= train.ADJOINT_MIN_SLOTS
-
-    mesh = make_render_mesh(1, 1, devices=jax.devices()[:1])
-    W, H = cam_mod.image_size(scene.camera)
-    cam = cam_mod.derive(scene.camera)
-    render = train.make_kernel_render(
-        flat, mesh=mesh, width=W, height=H, n_strata=2, max_depth=3)
-    g = jnp.asarray(rng.normal(size=(H, W, 3)), jnp.float32)
-    params = {k: v for k, v in train.get_params(flat).items()
-              if k in requested}
-
-    def loss(p):
-        return jnp.sum(render(p, cam, jnp.asarray(0.0)) * g)
-
-    dp = jax.jit(jax.grad(loss))(params)
-
-    _, grads = wp.render_pass_pallas(
-        flat, cam, jnp.asarray(0.0, jnp.float32), jnp.asarray(0, jnp.int32),
-        cotangent=g, adjoint=True,
-        light_src=wp.light_sphere_sources(flat), width=W, height=H,
-        n_strata=2, max_depth=3, n_samples=4, interpret=True)
-    # render_image averages over total_spp = 4; the direct pass returns
-    # the radiance SUM's gradients
-    for f in requested:
-        np.testing.assert_allclose(np.asarray(dp[f]),
-                                   np.asarray(grads[f]) / 4.0, rtol=1e-5,
-                                   atol=1e-5, err_msg=f)
-    assert float(np.abs(np.asarray(dp["sph_center"])).max()) > 1e-4

@@ -101,8 +101,8 @@ def test_progressive_step_k():
 
 
 def test_preview_matches_host_downsample(rt):
-    """ProgressiveRenderer.preview (device-side downsample+gamma fetch,
-    round-5 VERDICT item 5) must equal the old host path byte-for-byte:
+    """ProgressiveRenderer.preview (device-side downsample+gamma fetch)
+    must equal the host path byte-for-byte:
     nearest-neighbor selection commutes with the per-pixel gamma/clamp."""
     import numpy as np
     from real_time_ray_tracing_engine_tpu.models.render import \
